@@ -1,0 +1,118 @@
+"""``python -m repro_torch`` against the golden and the JAX package's CLI.
+
+The port's CLI runs with ``--device cpu`` here.  Plain and ``--sharded``
+output must byte-match ``tests/fixtures/conformance.golden``, and every
+flag combination of ``tests/test_cli.py`` must print exactly what
+``python -m repro`` prints.  One subprocess runs the CLI with JAX made
+unimportable, which proves the port never needs it.
+"""
+
+import io
+import os
+import subprocess
+import sys
+
+import pytest
+
+from repro import cli as jax_cli
+
+from repro_torch import cli
+
+from test_torch_measures import single_torch_thread  # noqa: F401
+
+FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
+QREL = os.path.join(FIXTURES, "conformance.qrel")
+RUN = os.path.join(FIXTURES, "conformance.run")
+GOLDEN = os.path.join(FIXTURES, "conformance.golden")
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+
+
+def _run(main, argv):
+    buf = io.StringIO()
+    assert main(argv, out=buf) == 0
+    return buf.getvalue()
+
+
+def _port(argv):
+    return _run(cli.main, ["--device", "cpu", *argv])
+
+
+def _golden():
+    with open(GOLDEN, newline="") as fh:
+        return fh.read()
+
+
+@pytest.mark.parametrize("extra", [[], ["--sharded"]])
+def test_cli_byte_matches_golden(extra):
+    assert _port([*extra, QREL, RUN]) == _golden()
+
+
+@pytest.mark.parametrize("argv", [
+    ["-q"],
+    ["-q", "--sharded"],
+    ["-m", "ndcg", "-m", "map"],
+    ["-m", "P_5"],
+    ["-m", "P_5", "-m", "P_10"],
+    ["-q", "-m", "gm_map", "-m", "map"],
+    ["-q", "-m", "nDCG@10", "-m", "AP", "-m", "RBP(p=0.8)", "-m", "R@5"],
+    ["-m", "AP(rel=2)", "-m", "P(rel=2)@5"],
+    ["-q", "-J", "-m", "map", "-m", "P.5,10", "-m", "Judged@5"],
+    ["-q", "-l", "2", "-m", "map", "-m", "num_rel", "-m", "bpref"],
+    ["-q", "-m", "iprec_at_recall", "-m", "err", "--sharded"],
+])
+def test_cli_prints_what_the_jax_cli_prints(argv):
+    jax_argv = [a for a in argv if a != "--sharded"]
+    assert _port([*argv, QREL, RUN]) == _run(jax_cli.main,
+                                             [*jax_argv, QREL, RUN])
+
+
+def test_cli_complete_flag(tmp_path):
+    partial = tmp_path / "partial.run"
+    partial.write_text("q1 Q0 APPLE 0 3.0 tag\n")
+    for extra in ([], ["-c"]):
+        argv = [*extra, "-m", "map", "-m", "num_rel", "-m", "gm_map", QREL,
+                str(partial)]
+        assert _port(argv) == _run(jax_cli.main, argv)
+
+
+def test_cli_rejects_duplicates_and_unknown_measures(tmp_path, capsys):
+    dup = tmp_path / "dup.run"
+    dup.write_text("q1 Q0 APPLE 0 0.9 t\nq1 Q0 APPLE 1 0.8 t\n")
+    with pytest.raises(SystemExit):
+        cli.main(["--device", "cpu", QREL, str(dup)])
+    assert "duplicate" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        cli.main(["--device", "cpu", "-m", "nosuch", QREL, RUN])
+
+
+def test_cli_tables_match_jax_cli():
+    assert cli.FAMILY_ORDER == jax_cli.FAMILY_ORDER
+    assert cli.INT_MEASURES == jax_cli.INT_MEASURES
+    assert cli.SUM_MEASURES == jax_cli.SUM_MEASURES
+    assert cli.AGGREGATE_ONLY == jax_cli.AGGREGATE_ONLY
+
+
+def test_python_dash_m_repro_torch_runs_without_jax():
+    """``python -m repro_torch`` with ``jax`` blocked in ``sys.modules``:
+    imports, evaluates and byte-matches the golden, loading neither JAX
+    nor the JAX package."""
+    code = (
+        "import runpy, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.argv = ['repro_torch', '--device', 'cpu', '--sharded', "
+        f"{QREL!r}, {RUN!r}]\n"
+        "try:\n"
+        "    runpy.run_module('repro_torch', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "import repro_torch.core, repro_torch.kernels, "
+        "repro_torch.distributed\n"
+        "bad = [m for m in sys.modules if m == 'repro' "
+        "or m.startswith(('repro.', 'jax.', 'jaxlib'))]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout == _golden()

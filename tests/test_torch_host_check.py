@@ -1,0 +1,96 @@
+"""The CUDA kernels' per-row arithmetic, built for the host with g++.
+
+``csrc/fused_measures.cuh`` and ``csrc/bitonic.cuh`` hold the math the
+kernels run (the per-rank scan step, the cutoff slots, the 64 output
+columns; the bitonic compare-exchange and merge).  ``csrc/host_check.cpp``
+runs those same functions rank by rank and stage by stage on the CPU; this
+test builds it (no torch headers, about a second) and holds it against the
+plain PyTorch versions on small rows.  It is the only check of the kernels'
+arithmetic that needs no GPU; the kernels themselves are held against the
+plain versions on the card by ``chip_smoke.py``.
+"""
+
+import os
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import fused_measures as FM
+from repro_torch.kernels import topk as TK
+
+from test_torch_measures import single_torch_thread  # noqa: F401
+from test_torch_measures import assert_columns_match
+
+CSRC = os.path.join(os.path.dirname(__file__), "..", "src", "repro_torch",
+                    "csrc")
+
+
+@pytest.fixture(scope="module")
+def host_check(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is not installed: the host check cannot be built")
+    exe = str(tmp_path_factory.mktemp("host_check") / "host_check")
+    subprocess.run([gxx, "-std=c++17", "-O2", "-ffp-contract=off", "-Wall",
+                    "-Werror", "-o", exe,
+                    os.path.join(CSRC, "host_check.cpp")], check=True)
+    return exe
+
+
+def _fused_inputs(q, d, seed):
+    rng = np.random.default_rng(seed)
+    rel = rng.integers(-1, 4, (q, d)).astype(np.float32)
+    rel[rng.random((q, d)) < 0.5] = 0.0
+    judged = (rng.random((q, d)) < 0.6).astype(np.float32)
+    judged[rel != 0] = 1.0
+    scal = np.zeros((q, FM.SCALAR_WIDTH), np.float32)
+    scal[:, 0] = rng.integers(0, 40, q)
+    scal[:, 1] = rng.integers(0, 40, q)
+    scal[:, 2:12] = rng.random((q, 10)) * 10 + 1
+    scal[0, :3] = 0.0  # R = 0 and no ideal gain: the guarded divisions
+    return rel, judged, scal
+
+
+@pytest.mark.parametrize("q,d,level", [
+    (4, 1, 1.0), (5, 8, 1.0), (3, 1000, 1.0), (4, 1100, 2.0), (2, 3000, 1.0),
+])
+def test_fused_row_math_matches_plain(host_check, q, d, level):
+    rel, judged, scal = _fused_inputs(q, d, q * d)
+    out = subprocess.run(
+        [host_check, "fused", str(q), str(d), repr(level)],
+        input=rel.tobytes() + judged.tobytes() + scal.tobytes(),
+        capture_output=True, check=True).stdout
+    got = np.frombuffer(out, np.float32).reshape(q, FM.OUT_WIDTH)
+    want = FM.fused_measures_plain(torch.from_numpy(rel),
+                                   torch.from_numpy(judged),
+                                   torch.from_numpy(scal), level).numpy()
+    cols = {name: i for i, name in enumerate(FM.COLUMNS)}
+    assert_columns_match({k: got[:, i] for k, i in cols.items()},
+                         {k: want[:, i] for k, i in cols.items()})
+    assert not got[:, len(FM.COLUMNS):].any()
+
+
+@pytest.mark.parametrize("q,d,k", [
+    (3, 100, 10), (3, 5, 8), (4, 3000, 1000), (2, 2049, 1000),
+    (3, 9000, 128), (2, 5000, 2000),
+])
+def test_topk_row_math_matches_plain(host_check, q, d, k):
+    rng = np.random.default_rng(q + d + k)
+    scores = rng.integers(0, 5, (q, d)).astype(np.float32)
+    scores[rng.random((q, d)) < 0.1] = -np.inf
+    scores[rng.random((q, d)) < 0.1] = -0.0
+    scores[0] = rng.standard_normal(d)
+    out = subprocess.run([host_check, "topk", str(q), str(d), str(k)],
+                         input=scores.tobytes(), capture_output=True,
+                         check=True).stdout
+    vals = np.frombuffer(out[:q * k * 4], np.float32).reshape(q, k)
+    idx = np.frombuffer(out[q * k * 4:], np.int32).reshape(q, k)
+    pv, pi = TK.topk_plain(torch.from_numpy(scores), k)
+    kk = min(k, d)
+    np.testing.assert_array_equal(idx[:, :kk], pi.numpy()[:, :kk])
+    np.testing.assert_array_equal(vals[:, :kk], pv.numpy()[:, :kk])
+    # short rows: -inf with out-of-range indices, as the Pallas kernel pads
+    assert (vals[:, kk:] == -np.inf).all() and (idx[:, kk:] >= d).all()
