@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--seed N]
 
-Builds both CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
-source, in parallel), then drives the port's main path through the entry
+Builds the three CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
+per source, in parallel), then drives the port's paths through the entry
 points a user calls:
 
 * A. ``python -m repro_torch`` (in-process, ``--device cuda``) on the
@@ -20,10 +20,22 @@ points a user calls:
   ``buffer_from_tokens``) with depth-bounded measures, so the evaluator
   routes through the top-k kernel; held against the full-sort route on the
   same buffer.
-* D. Each kernel against its plain PyTorch version on the main path's
-  inputs, with median times, the plain version's time, ``torch.topk``'s
-  time for the top-k kernel (timed only; the port never calls it), the
-  byte bound and the launch counts from B and C.
+* E. Recsys serving at full width (xDeepFM, SASRec, AutoInt, MIND from
+  ``make_config(False)``, weights from a seeded ``torch.Generator`` on the
+  card), through ``get_arch(name).make_step(cfg, shape)``: 20 timed
+  ``serve_p99`` requests per arch (SASRec and MIND rank 1,024-item slates
+  with in-loop ndcg_cut_10 / recip_rank / success_10), one xDeepFM
+  ``serve_bulk`` batch (262,144 rows, three EmbeddingBag launches) and
+  ``retrieval_cand`` (10^6 candidates, top 1,000 through the top-k kernel)
+  for SASRec and xDeepFM.  Requests come from ``data/recsys_data`` with
+  the seed; head rows of each answer are recomputed on the CPU with the
+  same weights (atol = rtol = 1e-4) and the in-loop metrics recomputed on
+  the CPU from the card's scores (2e-4).
+* D. Each kernel against its plain PyTorch version on the main paths'
+  inputs, with median times, the plain version's time, one PyTorch call's
+  time where one computes the same function (``torch.topk``,
+  ``F.embedding_bag``; timed only, the port never calls them), the bound
+  and the launch counts from B, C and E.
 
 Every phase prints one JSON line; any failure raises and exits non-zero.
 The last lines are the card's ``nvidia-smi`` name and power limit and
@@ -166,6 +178,24 @@ def split_times(ev, buf, compute, topk_layout=False):
             "device_busy_share": busy_us / 1e6 / total}
 
 
+def _kernel_modules():
+    from repro_torch.kernels import embedding_bag as EB
+    from repro_torch.kernels import fused_measures as FM
+    from repro_torch.kernels import topk as TK
+
+    return {"fused_measures": FM, "topk": TK, "embedding_bag": EB}
+
+
+def zero_launches():
+    """Set every kernel's launch count to 0 (just before a path runs)."""
+    for mod in _kernel_modules().values():
+        mod.LAUNCHES = 0
+
+
+def read_launches():
+    return {name: mod.LAUNCHES for name, mod in _kernel_modules().items()}
+
+
 def _stacked(cols):
     import torch
 
@@ -222,8 +252,6 @@ def paper_data(rng, nq, nd, nj):
 def phase_paper(device, rng, nq=PAPER_Q, nd=PAPER_D, nj=PAPER_J):
     from repro_torch.core import RelevanceEvaluator, compute_measures
     from repro_torch.distributed import ShardedEvaluator
-    from repro_torch.kernels import fused_measures as FM
-    from repro_torch.kernels import topk as TK
 
     t0 = time.perf_counter()
     qrel, qids, docnos, scores = paper_data(rng, nq, nd, nj)
@@ -235,13 +263,13 @@ def phase_paper(device, rng, nq=PAPER_Q, nd=PAPER_D, nj=PAPER_J):
     setup = {"data_s": t1 - t0, "evaluator_s": t2 - t1,
              "buffer_from_arrays_s": time.perf_counter() - t2}
 
-    FM.LAUNCHES = TK.LAUNCHES = 0
+    zero_launches()
     t0 = time.perf_counter()
     core = ev.evaluate_buffer(buf)
     t1 = time.perf_counter()
     fused = sev.evaluate_buffer(buf).per_query
     t2 = time.perf_counter()
-    launches = {"fused_measures": FM.LAUNCHES, "topk": TK.LAUNCHES}
+    launches = read_launches()
     check(launches["fused_measures"] >= 1,
           "main path did not launch the fused-measure kernel")
     check(len(core) == nq, f"{len(core)} queries evaluated, want {nq}")
@@ -293,8 +321,6 @@ def phase_deep(device, rng, nq=DEEP_Q, nd=DEEP_D, nj=DEEP_J):
 
     from repro_torch.core import (RelevanceEvaluator, compute_measures,
                                   compute_measures_topk)
-    from repro_torch.kernels import fused_measures as FM
-    from repro_torch.kernels import topk as TK
 
     t0 = time.perf_counter()
     qrel, qids, names = deep_data(rng, nq, nd, nj)
@@ -307,11 +333,11 @@ def phase_deep(device, rng, nq=DEEP_Q, nd=DEEP_D, nj=DEEP_J):
     setup = {"data_and_evaluator_s": t1 - t0,
              "buffer_from_tokens_s": time.perf_counter() - t1}
 
-    FM.LAUNCHES = TK.LAUNCHES = 0
+    zero_launches()
     t0 = time.perf_counter()
     routed = ev.evaluate_buffer(buf)
     t1 = time.perf_counter()
-    launches = {"fused_measures": FM.LAUNCHES, "topk": TK.LAUNCHES}
+    launches = read_launches()
     check(launches["topk"] >= 1, "main path did not launch the top-k kernel")
 
     # the same buffer through the full-sort route
@@ -332,7 +358,331 @@ def phase_deep(device, rng, nq=DEEP_Q, nd=DEEP_D, nj=DEEP_J):
             "max_abs_diff": worst, "launches": launches}, (ev, buf)
 
 
-def phase_kernels(paper, deep, launches):
+#: recsys serving (phase E): the four archs at full width
+RECSYS_ARCHS = ("xdeepfm", "sasrec", "autoint", "mind")
+SERVE_REQUESTS = 20  # timed serve_p99 requests per arch, after one warm-up
+CHECK_ROWS = 8  # rows of an answer recomputed on the CPU
+SCORE_TOL = 1e-4  # card vs CPU: float sums in another order (CIN, attention)
+
+
+def _n_items(name, cfg):
+    return cfg.n_items if name == "sasrec" else cfg.table.vocab_per_field
+
+
+def recsys_request(name, cfg, shape, seed, step):
+    """One request's numpy arguments after the model: the user batch from
+    ``data/recsys_data`` at (seed, step), plus for a slate the candidates
+    (the user's true next item planted at a random slot, rel 1 there) and
+    for retrieval the candidate ids with a few relevant ones."""
+    from repro_torch.data import recsys_data as RD
+
+    b = shape.get("batch")
+    n = _n_items(name, cfg)
+    rng = np.random.default_rng([seed, step, 99])
+    if name == "sasrec":
+        batch = RD.seq_batch(RD.SeqDataConfig(n, cfg.seq_len, b, seed=seed),
+                             step)
+        truth = batch["pos"][:, -1]
+    elif name == "mind":
+        batch = RD.mind_batch(RD.SeqDataConfig(n, cfg.hist_len, b,
+                                               seed=seed), step)
+        truth = batch["pos"]
+    else:
+        batch = RD.ctr_batch(RD.CTRDataConfig(
+            cfg.table.n_fields, n, b, cfg.n_multi_hot, cfg.multi_hot_len,
+            seed), step)
+        truth = None
+    if shape.kind == "retrieval":
+        nc = shape.get("n_candidates")
+        if truth is None:
+            batch = {"ids": batch["ids"][:1]}
+        cand = rng.integers(0, n, nc).astype(np.int32)
+        rel = (rng.random((b, nc)) < 1e-4).astype(np.int32)
+        if truth is not None:
+            slot = int(rng.integers(0, nc))
+            cand[slot] = truth[0]
+            rel[0, slot] = 1
+        return (batch, cand, rel)
+    slate = shape.get("slate", 0)
+    if truth is None or not slate:
+        return (batch,)
+    cand = rng.integers(0, n, (b, slate)).astype(np.int32)
+    slot = rng.integers(0, slate, b)
+    cand[np.arange(b), slot] = truth
+    rel = np.zeros((b, slate), np.int32)
+    rel[np.arange(b), slot] = 1
+    return (batch, cand, rel)
+
+
+def _head(args, rows):
+    """The first ``rows`` rows of a serve request's arguments."""
+    batch = {k: v[:rows] for k, v in args[0].items()}
+    return (batch, *(a[:rows] for a in args[1:]))
+
+
+def _cpu_copy(model, name):
+    """The same weights in a module on the CPU (built on ``meta``, so no
+    weights are drawn on the host)."""
+    from repro_torch.launch.steps import MODELS
+
+    cpu = MODELS[name](model.cfg, device="meta").to_empty(device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    return cpu
+
+
+def _check_close(got, want, what, tol=SCORE_TOL):
+    import torch
+
+    got, want = got.detach().cpu(), want.detach().cpu()
+    check(got.shape == want.shape, f"{what}: shape {tuple(got.shape)} != "
+          f"{tuple(want.shape)}")
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite values")
+    check(torch.allclose(got, want, atol=tol, rtol=tol),
+          f"{what}: beyond {tol} of the CPU")
+    return float((got - want).abs().max()) if got.numel() else 0.0
+
+
+def _check_metrics(metrics, scores, rel, what):
+    """In-loop metrics on the card against the CPU's from the same scores."""
+    import torch
+
+    from repro_torch.launch.steps import _slate_metrics
+
+    want = _slate_metrics(scores.detach().cpu(), torch.as_tensor(rel))
+    worst = 0.0
+    for k, v in want.items():
+        g = float(metrics[k])
+        check(0.0 <= g <= 1.0, f"{what} {k} = {g} outside [0, 1]")
+        check(abs(g - float(v)) <= TOL, f"{what} {k}: {g} vs CPU {float(v)}")
+        worst = max(worst, abs(g - float(v)))
+    return worst
+
+
+def serve_requests(name, arch, cfg, model, seed, device):
+    """Answer 1 + SERVE_REQUESTS ``serve_p99`` requests through the step a
+    user builds; host-clock latency per request (inputs to the card, step,
+    answer back), first one dropped as warm-up."""
+    import torch
+
+    from repro_torch.launch.api import to_device
+    from repro_torch.launch.steps import _slate_metrics
+
+    mods = _kernel_modules()
+    shape = arch.shapes["serve_p99"]
+    step = arch.make_step(cfg, shape).step_fn
+    lat, worst, first = [], 0.0, None
+    per_call = cfg.n_multi_hot if name == "xdeepfm" else 0
+    for r in range(1 + SERVE_REQUESTS):
+        args = recsys_request(name, cfg, shape, seed, r)
+        eb = mods["embedding_bag"].LAUNCHES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(model, *to_device(args, device))
+        scores = out[0] if isinstance(out, tuple) else out
+        host = scores.cpu()
+        metrics = ({k: float(v) for k, v in out[1].items()}
+                   if isinstance(out, tuple) else {})
+        lat.append(time.perf_counter() - t0)
+        check(mods["embedding_bag"].LAUNCHES - eb == per_call,
+              f"{name}: {mods['embedding_bag'].LAUNCHES - eb} EmbeddingBag "
+              f"launches in one serve call, want {per_call}")
+        want_shape = (shape.get("batch"),) + (
+            (shape.get("slate"),) if metrics else ())
+        check(tuple(host.shape) == want_shape, f"{name}: scores shape "
+              f"{tuple(host.shape)}, want {want_shape}")
+        check(bool(torch.isfinite(host).all()), f"{name}: non-finite scores")
+        if metrics:
+            worst = max(worst, _check_metrics(metrics, host, args[2],
+                                              f"{name} serve_p99"))
+        if first is None:
+            first = (args, host, metrics)
+    ms = np.array(lat[1:]) * 1e3
+    # the first request's head rows again on the CPU, same weights
+    args, host, metrics = first
+    cpu_model = _cpu_copy(model, name)
+    head = _head(args, CHECK_ROWS)
+    cpu_out = arch.make_step(cfg, shape, device="cpu").step_fn(
+        cpu_model, *to_device(head, "cpu"))
+    cpu_scores = cpu_out[0] if isinstance(cpu_out, tuple) else cpu_out
+    err = _check_close(host[:CHECK_ROWS], cpu_scores, f"{name} serve_p99")
+    del cpu_model
+    summary = {"requests": SERVE_REQUESTS, "batch": shape.get("batch"),
+               "p50_ms": float(np.percentile(ms, 50)),
+               "p99_ms": float(np.percentile(ms, 99)),
+               "max_ms": float(ms.max()), "cpu_check_max_abs_err": err,
+               "metrics_max_abs_err_vs_cpu": worst}
+    if metrics:
+        summary["first_metrics"] = metrics
+        summary["slate"] = shape.get("slate")
+    return summary
+
+
+def profile_request(arch, cfg, model, name, seed, device, top=6):
+    """Device time of one ``serve_p99`` request by kernel (the profiler's
+    sums), with the card's busy share of the request's host time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.api import to_device
+
+    shape = arch.shapes["serve_p99"]
+    step = arch.make_step(cfg, shape).step_fn
+    args = recsys_request(name, cfg, shape, seed, 0)
+    step(model, *to_device(args, device))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(model, *to_device(args, device))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+    busy = sum(r[1] for r in rows)
+    rows.sort(key=lambda r: -r[1])
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy / 1e3,
+            "device_busy_share": busy / 1e6 / wall,
+            "top_kernels": [{"name": k[:80], "ms": t / 1e3, "count": c}
+                            for k, t, c in rows[:top]]}
+
+
+def phase_recsys(device, seed):
+    """Recsys serving at full width: serve_p99 requests for every arch, one
+    xDeepFM serve_bulk batch, retrieval_cand for SASRec and xDeepFM."""
+    import torch
+
+    from repro_torch.kernels import topk as TK
+    from repro_torch.launch.api import get_arch, to_device
+    from repro_torch.launch.steps import MODELS, _CTR_SCORE
+    from repro_torch.models import recsys as R
+
+    mods = _kernel_modules()
+    result = {"phase": "E", "archs": {}}
+    keep = {}
+    zero_launches()
+    for name in RECSYS_ARCHS:
+        arch = get_arch(name)
+        cfg = arch.make_config(False)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=device).manual_seed(seed)
+        model = MODELS[name](cfg, device=device, generator=gen)
+        torch.cuda.synchronize()
+        res = {"params": sum(p.numel() for p in model.parameters()),
+               "init_s": time.perf_counter() - t0}
+        res["serve_p99"] = serve_requests(name, arch, cfg, model, seed,
+                                          device)
+        res["serve_p99"]["profile"] = profile_request(arch, cfg, model, name,
+                                                      seed, device)
+        if name == "xdeepfm":
+            # one serve_bulk batch
+            shape = arch.shapes["serve_bulk"]
+            args = recsys_request(name, cfg, shape, seed, 1000)
+            step = arch.make_step(cfg, shape).step_fn
+            dev_args = to_device(args, device)
+            eb = mods["embedding_bag"].LAUNCHES
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scores = step(model, *dev_args)
+            torch.cuda.synchronize()
+            bulk_s = time.perf_counter() - t0
+            check(mods["embedding_bag"].LAUNCHES - eb == cfg.n_multi_hot,
+                  "serve_bulk: EmbeddingBag not launched once per field")
+            cpu_model = _cpu_copy(model, name)
+            cpu_scores = arch.make_step(cfg, shape, device="cpu").step_fn(
+                cpu_model, *to_device(_head(args, CHECK_ROWS), "cpu"))
+            check(tuple(scores.shape) == (shape.get("batch"),),
+                  "serve_bulk scores shape")
+            check(bool(torch.isfinite(scores).all()),
+                  "serve_bulk: non-finite scores")
+            res["serve_bulk"] = {
+                "batch": shape.get("batch"), "step_s": bulk_s,
+                "rows_per_s": shape.get("batch") / bulk_s,
+                "cpu_check_max_abs_err": _check_close(
+                    scores[:CHECK_ROWS], cpu_scores, "serve_bulk")}
+            keep["xdeepfm"] = (model, cfg, dev_args[0])
+        if name in ("sasrec", "xdeepfm"):
+            shape = arch.shapes["retrieval_cand"]
+            args = recsys_request(name, cfg, shape, seed, 2000)
+            step = arch.make_step(cfg, shape).step_fn
+            dev_args = to_device(args, device)
+            times = []
+            for _ in range(2):  # the first call warms up
+                tk = mods["topk"].LAUNCHES
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                v, i, metrics = step(model, *dev_args)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                check(mods["topk"].LAUNCHES - tk == 1,
+                      f"{name} retrieval did not launch the top-k kernel")
+            k, nc = shape.get("topk"), shape.get("n_candidates")
+            check(tuple(v.shape) == (1, k) and tuple(i.shape) == (1, k),
+                  "retrieval output shape")
+            check(bool(torch.isfinite(v).all()), "retrieval: non-finite")
+            check(bool((v[:, :-1] >= v[:, 1:]).all()),
+                  "retrieval values not descending")
+            check(bool(((i >= 0) & (i < nc)).all()), "retrieval index range")
+            # the card's full score row, for the metric check and phase D
+            batch, cand = dev_args[0], dev_args[1]
+            with torch.inference_mode():
+                if name == "sasrec":
+                    scores = R.sasrec_retrieval_scores(
+                        model, {**batch, "candidates": cand}, cfg)
+                else:
+                    ids = batch["ids"].expand(nc, -1).clone()
+                    ids[:, 0] = cand
+                    scores = _CTR_SCORE[name](model, {"ids": ids},
+                                              cfg)[None, :]
+            check(torch.allclose(v, torch.gather(scores, 1, i.long()),
+                                 atol=1e-6, rtol=1e-6),
+                  "retrieval values are not the scores at their indices")
+            m_err = _check_metrics(metrics, scores, args[2],
+                                   f"{name} retrieval")
+            # the top rows rescored on the CPU
+            cpu_model = _cpu_copy(model, name)
+            top = i[0, :CHECK_ROWS].long().cpu()
+            cpu_batch = to_device(args[0], "cpu")
+            with torch.inference_mode():
+                if name == "sasrec":
+                    cpu_v = R.sasrec_retrieval_scores(
+                        cpu_model, {**cpu_batch, "candidates":
+                                    torch.from_numpy(args[1])[top]}, cfg)
+                else:
+                    ids = cpu_batch["ids"].expand(len(top), -1).clone()
+                    ids[:, 0] = torch.from_numpy(args[1])[top]
+                    cpu_v = _CTR_SCORE[name](cpu_model, {"ids": ids},
+                                             cfg)[None, :]
+            del cpu_model
+            res["retrieval_cand"] = {
+                "n_candidates": nc, "topk": k, "step_s": times[1],
+                "first_call_s": times[0],
+                "metrics": {kk: float(vv) for kk, vv in metrics.items()},
+                "metrics_max_abs_err_vs_cpu": m_err,
+                "cpu_check_max_abs_err": _check_close(
+                    v[:, :CHECK_ROWS], cpu_v, f"{name} retrieval")}
+            if name == "sasrec":
+                keep["retrieval_scores"] = scores.contiguous()
+            del scores
+        res["peak_device_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        result["archs"][name] = res
+        if name != "xdeepfm":
+            del model
+        torch.cuda.empty_cache()
+    result["launches"] = read_launches()
+    check(result["launches"]["embedding_bag"] > 0,
+          "phase E did not launch the EmbeddingBag kernel")
+    check(result["launches"]["topk"] > 0,
+          "phase E did not launch the top-k kernel")
+    result["tf32"] = {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                      "cudnn": torch.backends.cudnn.allow_tf32}
+    return result, keep
+
+
+def phase_kernels(paper, deep, recsys, launches):
     """Each kernel against its plain version on the main path's inputs."""
     import torch
 
@@ -405,7 +755,99 @@ def phase_kernels(paper, deep, launches):
         bound_ms=max(nbytes / HBM_BYTES_PER_S, q * d / FP32_FLOPS_PER_S)
         * 1e3,
         bound_by="bytes", library_ms=library_ms))
+    del scores_m, v, i, pv, pi
+
+    # B2 again, at the retrieval shape [1, 1,000,000], k = 1,000 (phase E)
+    rows.append(topk_row(recsys["retrieval_scores"], 1000,
+                         launches["topk_retrieval"]))
+    # B3: one xDeepFM multi-hot field of phase E's serve_bulk batch
+    rows.append(embedding_bag_row(recsys["xdeepfm"],
+                                  launches["embedding_bag"]))
     return rows
+
+
+def topk_row(scores, k, launches):
+    import torch
+
+    from repro_torch.kernels import topk as TK
+
+    q, d = scores.shape
+    v, i = TK.topk(scores, k)
+    pv, pi = TK.topk_plain(scores, k)
+    torch.cuda.synchronize()
+    check(torch.equal(i, pi), "top-k kernel indices differ from plain")
+    check(torch.equal(v, pv), "top-k kernel values differ from plain")
+    nbytes = q * d * 4 + q * k * 8
+    return dict(
+        name="topk", route="cuda", source="src/repro_torch/csrc/topk.cu",
+        replaces="src/repro/kernels/topk.py:36", launches=launches,
+        max_abs_err=float((v - pv).abs().max()),
+        ms=time_ms(lambda: TK.topk(scores, k), iters=10),
+        plain_ms=time_ms(lambda: TK.topk_plain(scores, k), iters=10),
+        shape=[q, d, k],
+        bound_ms=max(nbytes / HBM_BYTES_PER_S, q * d / FP32_FLOPS_PER_S)
+        * 1e3,
+        bound_by="bytes",
+        library_ms=time_ms(lambda: torch.topk(scores, k), iters=10))
+
+
+def embedding_bag_row(xdeepfm, launches, field=0):
+    """B3 at the serve_bulk per-field shape: L = 262,144 x 8 lookups into
+    262,144 bags of the 39M-row table.  Held bit for bit against the plain
+    version run on the CPU (which sums each bag in lookup order, as the
+    kernel does) and, within 1e-6, against the plain version on the card,
+    whose ``index_add_`` adds with atomics in no fixed order."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import embedding_bag as EB
+
+    model, cfg, batch = xdeepfm
+    table = model.table.detach()
+    ids = batch["mh_ids"][:, field] + field * cfg.table.vocab_per_field
+    mask = batch["mh_mask"][:, field]
+    b, m = ids.shape
+    idx = ids.reshape(-1)
+    seg = torch.arange(b, device=ids.device)[:, None].expand(b, m).reshape(-1)
+    w = mask.reshape(-1).to(torch.float32)
+    got = EB.embedding_bag(table, idx, seg, b, w)
+    plain = EB.embedding_bag_plain(table, idx, seg, b, w)
+    # the plain version on the CPU, on the gathered rows (the same function
+    # of the same inputs, without copying the 1.6 GB table to the host)
+    rows = table[idx.long()].cpu()
+    cpu = EB.embedding_bag_plain(rows, torch.arange(b * m), seg.cpu(), b,
+                                 w.cpu())
+    torch.cuda.synchronize()
+    check(bool((got.cpu() == cpu).all()),
+          "EmbeddingBag kernel differs from the plain version on the CPU")
+    check(torch.allclose(got, plain, atol=1e-6, rtol=1e-6),
+          "EmbeddingBag kernel beyond 1e-6 of the plain version on the card")
+    e = table.shape[1]
+    l = idx.numel()
+    unique_rows = int(torch.unique(idx).numel())
+    # each touched row read once, index + bag id + weight per lookup, the
+    # bags written once; a multiply and an add per lookup and column
+    nbytes = unique_rows * e * 4 + l * 12 + b * e * 4
+    flops = 2 * l * e
+    prepared = EB.prepare(idx, seg, b, w)
+    lib_ids, lib_w = ids.long(), mask.to(torch.float32)
+    return dict(
+        name="embedding_bag", route="cuda",
+        source="src/repro_torch/csrc/embedding_bag.cu",
+        replaces="src/repro/kernels/embedding_bag.py:34", launches=launches,
+        max_abs_err=float((got - plain).abs().max()),
+        bit_identical_to_cpu_plain=True,
+        ms=time_ms(lambda: EB.embedding_bag(table, idx, seg, b, w)),
+        kernel_only_ms=time_ms(lambda: EB.launch(table, *prepared, b)),
+        plain_ms=time_ms(lambda: EB.embedding_bag_plain(table, idx, seg, b,
+                                                        w)),
+        shape=[int(table.shape[0]), e, l, b], unique_rows=unique_rows,
+        bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S)
+        * 1e3,
+        bound_by="bytes" if nbytes / HBM_BYTES_PER_S
+        >= flops / FP32_FLOPS_PER_S else "operations",
+        library_ms=time_ms(lambda: F.embedding_bag(
+            lib_ids, table, mode="sum", per_sample_weights=lib_w)))
 
 
 # -- entry point --------------------------------------------------------------
@@ -430,9 +872,15 @@ def main(argv=None) -> int:
     sys.path.insert(0, src)
     from repro_torch.kernels import _build
 
+    # the JAX reference is float32: no TF32 in float32 products
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     emit({"phase": "card", "nvidia_smi": card,
-          "torch": torch.__version__, "cuda": torch.version.cuda})
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "allow_tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                         "cudnn": torch.backends.cudnn.allow_tf32},
+          "float32_matmul_precision": torch.get_float32_matmul_precision()})
 
     t0 = time.perf_counter()
     _build.build()
@@ -442,15 +890,26 @@ def main(argv=None) -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": ptxas})
 
+    def timed(fn, *a):
+        t = time.perf_counter()
+        out, ctx = fn(*a)
+        out["seconds"] = time.perf_counter() - t
+        emit(out)
+        return out, ctx
+
     emit(phase_cli("cuda"))
     rng = np.random.default_rng(args.seed)
-    out_b, paper = phase_paper("cuda", rng)
-    emit(out_b)
-    out_c, deep = phase_deep("cuda", rng)
-    emit(out_c)
+    out_b, paper = timed(phase_paper, "cuda", rng)
+    out_c, deep = timed(phase_deep, "cuda", rng)
+    out_e, recsys = timed(phase_recsys, "cuda", args.seed)
     launches = {"fused_measures": out_b["launches"]["fused_measures"],
-                "topk": out_c["launches"]["topk"]}
-    emit({"kernels": phase_kernels(paper, deep, launches)})
+                "topk": out_c["launches"]["topk"],
+                "topk_retrieval": out_e["launches"]["topk"],
+                "embedding_bag": out_e["launches"]["embedding_bag"]}
+    t0 = time.perf_counter()
+    rows = phase_kernels(paper, deep, recsys, launches)
+    emit({"phase": "D", "seconds": time.perf_counter() - t0})
+    emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

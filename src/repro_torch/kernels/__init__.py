@@ -2,6 +2,7 @@
 
 * ``topk``            — per-row top-k over the document axis.
 * ``fused_measures``  — every standard trec_eval column in one pass.
+* ``embedding_bag``   — weighted sum of table rows per bag.
 * ``bucketing``       — power-of-two shape classes.
 
 Each kernel module holds its wrapper (kernel for CUDA tensors, plain

@@ -14,6 +14,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.core import measures as M
+from repro_torch.kernels import embedding_bag as _eb
 from repro_torch.kernels import fused_measures as _fm
 from repro_torch.kernels import topk as _topk
 
@@ -23,6 +24,13 @@ FUSED_COLUMNS: Tuple[str, ...] = tuple(_fm.COLUMNS)
 def topk(scores: torch.Tensor, k: int):
     """Per-row top-k (values, indices), ties to the lower index."""
     return _topk.topk(scores, k)
+
+
+def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
+                  segment_ids: torch.Tensor, n_bags: int,
+                  weights: torch.Tensor | None = None) -> torch.Tensor:
+    """Weighted sum of table rows per bag, ``[n_bags, E]`` f32."""
+    return _eb.embedding_bag(table, indices, segment_ids, n_bags, weights)
 
 
 def fused_measures_cols(rel_sorted, judged_sorted, scalars,

@@ -1,7 +1,8 @@
-"""Oracles for the two kernels, independent of their plain versions.
+"""Oracles for the kernels, independent of their plain versions.
 
 ``topk_ref`` orders on the host with numpy's lexsort; ``fused_measures_ref``
-rebuilds every fused column from the measure core's column functions.
+rebuilds every fused column from the measure core's column functions;
+``embedding_bag_ref`` sums each bag on the host in float64.
 """
 
 from __future__ import annotations
@@ -70,3 +71,18 @@ def fused_measures_ref(rel_sorted, judged_sorted, scalars,
     cols[f"rbp_{FM.DEFAULT_RBP_P:.2f}"] = M.rbp(s, FM.DEFAULT_RBP_P)
     out = torch.stack([cols[name] for name in FM.COLUMNS], dim=-1)
     return torch.nn.functional.pad(out, (0, FM.OUT_WIDTH - out.shape[-1]))
+
+
+def embedding_bag_ref(table, indices, segment_ids, n_bags, weights=None):
+    """Per-bag weighted row sums with ``np.add.at`` in float64, rounded
+    to f32 once: within f32 rounding of the kernel, not bit-identical."""
+    tab = table.detach().cpu().numpy().astype(np.float64)
+    idx = indices.detach().cpu().numpy().astype(np.int64)
+    seg = segment_ids.detach().cpu().numpy().astype(np.int64)
+    rows = tab[idx]
+    if weights is not None:
+        w = weights.detach().cpu().numpy().astype(np.float64)
+        rows = rows * w[:, None]
+    out = np.zeros((n_bags, tab.shape[1]), np.float64)
+    np.add.at(out, seg, rows)
+    return torch.from_numpy(out.astype(np.float32)).to(table.device)

@@ -1,0 +1,78 @@
+"""EmbeddingBag and field lookups — the recsys sparse front end.
+
+The counterpart of ``repro.models.embedding``.  Tables for the CTR models
+are one concatenated ``[Σ vocab_f, dim]`` tensor; field offsets turn
+per-field ids into global rows.  Where the JAX package chose the Pallas
+kernel with ``use_kernel``, the port chooses by device through
+:func:`repro_torch.kernels.ops.embedding_bag`: a CUDA table launches the
+hand-written kernel, a CPU table runs its plain version.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models.layers import normal
+
+
+@dataclasses.dataclass(frozen=True)
+class TableConfig:
+    n_fields: int
+    vocab_per_field: int
+    dim: int
+
+    @property
+    def total_rows(self) -> int:
+        return self.n_fields * self.vocab_per_field
+
+
+def init_table(gen: torch.Generator | None, cfg: TableConfig,
+               dtype=torch.float32, scale: float = 0.01,
+               device=None) -> torch.Tensor:
+    return normal(gen, (cfg.total_rows, cfg.dim), scale, dtype, device)
+
+
+def field_lookup(table, ids, cfg: TableConfig) -> torch.Tensor:
+    """Single-hot lookup: ids ``[B, n_fields]`` per field → ``[B, n_fields,
+    dim]``."""
+    offsets = torch.arange(cfg.n_fields, dtype=ids.dtype,
+                           device=ids.device) * cfg.vocab_per_field
+    rows = ids + offsets[None, :]
+    return torch.index_select(table, 0, rows.reshape(-1)).reshape(
+        *rows.shape, table.shape[1])
+
+
+def embedding_bag(table, indices, segment_ids, n_bags: int,
+                  weights: Optional[torch.Tensor] = None,
+                  combiner: str = "sum") -> torch.Tensor:
+    """Bag-combine table rows: ``[L]`` indices into ``[n_bags]`` bags →
+    ``[n_bags, dim]``; ``combiner="mean"`` divides by the bag's weight sum
+    (its count without weights), at least 1."""
+    if combiner not in ("sum", "mean"):
+        raise ValueError(f"combiner must be 'sum' or 'mean', got "
+                         f"{combiner!r}")
+    out = ops.embedding_bag(table, indices, segment_ids, n_bags, weights)
+    if combiner == "mean":
+        ones = (weights if weights is not None
+                else torch.ones(segment_ids.shape, dtype=out.dtype,
+                                device=out.device))
+        counts = torch.zeros((n_bags,), dtype=out.dtype, device=out.device)
+        counts.index_add_(0, segment_ids.long(), ones)
+        out = out / torch.clamp(counts, min=1.0)[:, None]
+    return out
+
+
+def multi_hot_lookup(table, ids, mask, cfg: TableConfig, field: int,
+                     combiner: str = "sum") -> torch.Tensor:
+    """Multi-hot field: ids ``[B, M]`` (padded, mask ``[B, M]``) →
+    ``[B, dim]``."""
+    b, m = ids.shape
+    rows = ids + field * cfg.vocab_per_field
+    segs = torch.arange(b, device=ids.device)[:, None].expand(b, m)
+    w = mask.reshape(-1).to(table.dtype)
+    return embedding_bag(table, rows.reshape(-1), segs.reshape(-1), b,
+                         weights=w, combiner=combiner)

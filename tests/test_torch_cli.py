@@ -95,7 +95,8 @@ def test_cli_tables_match_jax_cli():
 def test_python_dash_m_repro_torch_runs_without_jax():
     """``python -m repro_torch`` with ``jax`` blocked in ``sys.modules``:
     imports, evaluates and byte-matches the golden, loading neither JAX
-    nor the JAX package."""
+    nor the JAX package; nor do the recsys slice's modules (registry,
+    steps, models, the EmbeddingBag wrapper) when imported after it."""
     code = (
         "import runpy, sys\n"
         "sys.modules['jax'] = None\n"
@@ -107,6 +108,10 @@ def test_python_dash_m_repro_torch_runs_without_jax():
         "    assert e.code == 0, e.code\n"
         "import repro_torch.core, repro_torch.kernels, "
         "repro_torch.distributed\n"
+        "import repro_torch.launch.api, repro_torch.launch.steps, "
+        "repro_torch.models.recsys, repro_torch.kernels.embedding_bag\n"
+        "from repro_torch.launch.api import get_arch, list_archs\n"
+        "assert list_archs() == ['autoint', 'mind', 'sasrec', 'xdeepfm']\n"
         "bad = [m for m in sys.modules if m == 'repro' "
         "or m.startswith(('repro.', 'jax.', 'jaxlib'))]\n"
         "assert not bad, bad\n")

@@ -2,8 +2,10 @@
 
 Edge shapes the smoke test's main path does not reach: one-rank rows,
 rows shorter than every cutoff, tiles cut by D, k above D, several tiles
-merged into the running top-k, heavy ties and signed zeros.  Run on a
-machine with a GPU::
+merged into the running top-k, heavy ties and signed zeros; EmbeddingBag
+at odd widths, with empty bags, one bag holding every lookup and no
+lookups; and smoke-size recsys steps on the card against the CPU.  Run on
+a machine with a GPU::
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -19,9 +21,14 @@ import torch
 
 from repro_torch.core import RelevanceEvaluator
 from repro_torch.core import trec
+from repro_torch.configs.common import smoke_shape
+from repro_torch.data import recsys_data as RD
 from repro_torch.distributed import ShardedEvaluator
+from repro_torch.kernels import embedding_bag as EB
 from repro_torch.kernels import fused_measures as FM
 from repro_torch.kernels import topk as TK
+from repro_torch.launch.api import get_arch, to_device
+from repro_torch.launch.steps import MODELS
 
 pytestmark = pytest.mark.cuda
 
@@ -127,3 +134,111 @@ def test_evaluator_on_cuda_matches_cpu(cuda):
             for k, v in cpu[qid].items():
                 assert gpu[qid][k] == pytest.approx(v, abs=TOL, rel=TOL), \
                     (qid, k)
+
+
+@pytest.mark.parametrize("v,e,n_bags,l,case", [
+    (50, 1, 7, 40, "random"), (1000, 10, 300, 2400, "random"),
+    (77, 33, 12, 90, "unsorted"), (40, 10, 9, 12, "empty_bags"),
+    (60, 10, 1, 500, "one_bag"), (30, 10, 5, 0, "no_lookups"),
+])
+def test_embedding_bag_kernel_matches_plain(cuda, v, e, n_bags, l, case):
+    rng = np.random.default_rng(v + e + l)
+    table = rng.standard_normal((v, e)).astype(np.float32)
+    idx = rng.integers(0, v, l).astype(np.int32)
+    w = rng.random(l).astype(np.float32)
+    if case == "one_bag":
+        seg = np.zeros(l, np.int32)
+    elif case == "empty_bags":
+        seg = rng.choice(np.array([1, 4, 5], np.int32), l)
+    else:
+        seg = rng.integers(0, n_bags, l).astype(np.int32)
+    if case != "unsorted":
+        seg = np.sort(seg)
+    cpu = [torch.from_numpy(x) for x in (table, idx, seg, w)]
+    dev = [t.to(cuda) for t in cpu]
+    before = EB.LAUNCHES
+    got = EB.embedding_bag(*dev[:3], n_bags, dev[3])
+    assert EB.LAUNCHES == before + 1
+    # the plain version on the CPU sums each bag in lookup order, as the
+    # kernel does: bit-identical (== so that signed zeros compare equal)
+    want = EB.embedding_bag_plain(*cpu[:3], n_bags, cpu[3])
+    torch.cuda.synchronize()
+    assert bool((got.cpu() == want).all())
+    unweighted = EB.embedding_bag(*dev[:3], n_bags)
+    assert bool((unweighted.cpu()
+                 == EB.embedding_bag_plain(*cpu[:3], n_bags)).all())
+
+
+def test_embedding_bag_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    table = torch.zeros((10, 4), device=cuda)
+    idx = torch.tensor([1, 2], dtype=torch.int32, device=cuda)
+    seg = torch.tensor([0, 1], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        EB.embedding_bag(table, idx + 9, seg, 2)  # row out of range
+    with pytest.raises(ValueError):
+        EB.embedding_bag(table, idx, seg + 1, 2)  # bag out of range
+    with pytest.raises(ValueError):
+        EB.embedding_bag(table.double(), idx, seg, 2)
+    with pytest.raises(ValueError):
+        EB.embedding_bag(table.t(), idx, seg, 2)  # not contiguous
+    with pytest.raises(ValueError):
+        EB.embedding_bag(table, idx.cpu(), seg, 2)
+
+
+def _smoke_args(name, cfg, shape, seed=0):
+    b = shape.get("batch")
+    rng = np.random.default_rng(seed)
+    n_items = cfg.n_items if name == "sasrec" else cfg.table.vocab_per_field
+    if name == "sasrec":
+        batch = RD.seq_batch(RD.SeqDataConfig(n_items, cfg.seq_len, b,
+                                              seed=seed), 0)
+    elif name == "mind":
+        batch = RD.mind_batch(RD.SeqDataConfig(n_items, cfg.hist_len, b,
+                                               seed=seed), 0)
+    else:
+        batch = RD.ctr_batch(RD.CTRDataConfig(
+            cfg.table.n_fields, n_items, b, cfg.n_multi_hot,
+            cfg.multi_hot_len, seed), 0)
+    if shape.kind == "retrieval":
+        nc = shape.get("n_candidates")
+        if name in ("xdeepfm", "autoint"):
+            batch = {"ids": batch["ids"][:1]}
+        return (batch, rng.integers(0, n_items, nc).astype(np.int32),
+                (rng.random((b, nc)) < 0.1).astype(np.int32))
+    if name in ("sasrec", "mind"):
+        s = shape.get("slate")
+        return (batch, rng.integers(0, n_items, (b, s)).astype(np.int32),
+                (rng.random((b, s)) < 0.2).astype(np.int32))
+    return (batch,)
+
+
+@pytest.mark.parametrize("name", ["xdeepfm", "sasrec", "autoint", "mind"])
+@pytest.mark.parametrize("shape_name", ["serve_p99", "retrieval_cand"])
+def test_recsys_step_on_cuda_matches_cpu(cuda, name, shape_name):
+    arch = get_arch(name)
+    cfg = arch.make_config(True)
+    over = ({"batch": 4, "slate": 64} if shape_name == "serve_p99"
+            else {"n_candidates": 5000, "topk": 100})
+    shape = smoke_shape(arch.shapes[shape_name], **over)
+    cpu_model = MODELS[name](cfg, device="cpu")
+    gpu_model = MODELS[name](cfg, device=cuda)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    args = _smoke_args(name, cfg, shape)
+    eb, tk = EB.LAUNCHES, TK.LAUNCHES
+    got = arch.make_step(cfg, shape, device=cuda).step_fn(
+        gpu_model, *to_device(args, cuda))
+    torch.cuda.synchronize()
+    if name == "xdeepfm" and shape_name == "serve_p99":
+        assert EB.LAUNCHES == eb + cfg.n_multi_hot
+    if shape_name == "retrieval_cand":
+        assert TK.LAUNCHES == tk + 1
+    want = arch.make_step(cfg, shape, device="cpu").step_fn(
+        cpu_model, *to_device(args, "cpu"))
+    if shape_name == "retrieval_cand":  # (top-k values, indices, metrics)
+        got, want = (got[0], got[2]), (want[0], want[2])
+    elif name in ("xdeepfm", "autoint"):  # scores only
+        got, want = (got, {}), (want, {})
+    assert torch.allclose(got[0].cpu(), want[0], atol=1e-4, rtol=1e-4)
+    assert got[1].keys() == want[1].keys()
+    for k, v in want[1].items():
+        assert float(got[1][k]) == pytest.approx(float(v), abs=TOL), k
