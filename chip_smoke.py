@@ -25,17 +25,22 @@ points a user calls:
   card), through ``get_arch(name).make_step(cfg, shape)``: 20 timed
   ``serve_p99`` requests per arch (SASRec and MIND rank 1,024-item slates
   with in-loop ndcg_cut_10 / recip_rank / success_10), one xDeepFM
-  ``serve_bulk`` batch (262,144 rows, three EmbeddingBag launches) and
-  ``retrieval_cand`` (10^6 candidates, top 1,000 through the top-k kernel)
-  for SASRec and xDeepFM.  Requests come from ``data/recsys_data`` with
-  the seed; head rows of each answer are recomputed on the CPU with the
+  ``serve_bulk`` batch (262,144 rows; one EmbeddingBag launch covers its
+  three multi-hot fields, as in every xDeepFM call) and ``retrieval_cand``
+  (10^6 candidates, top 1,000 through one call of the top-k kernel, which
+  splits the row over two launches) for SASRec and xDeepFM.  Requests
+  come from ``data/recsys_data`` with the seed; head rows of each answer are recomputed on the CPU with the
   same weights (atol = rtol = 1e-4) and the in-loop metrics recomputed on
   the CPU from the card's scores (2e-4).
 * D. Each kernel against its plain PyTorch version on the main paths'
   inputs, with median times, the plain version's time, one PyTorch call's
   time where one computes the same function (``torch.topk``,
-  ``F.embedding_bag``; timed only, the port never calls them), the bound
-  and the launch counts from B, C and E.
+  ``F.embedding_bag``; timed only, the port never calls them), the bound,
+  the launch counts from B, C and E and, for B2 and B3, the kernels that
+  one wrapper call launched (as their C entry points count them): B1 at
+  phase B's batch, B2 at ``[1,024, 65,536]`` (phase C) and ``[1, 10^6]``
+  (phase E), B3's all-fields call at the ``serve_bulk`` batch (phase E),
+  with its general sort-and-CSR wrapper at one field's bags beside it.
 
 Every phase prints one JSON line; any failure raises and exits non-zero.
 The last lines are the card's ``nvidia-smi`` name and power limit and
@@ -471,7 +476,7 @@ def serve_requests(name, arch, cfg, model, seed, device):
     shape = arch.shapes["serve_p99"]
     step = arch.make_step(cfg, shape).step_fn
     lat, worst, first = [], 0.0, None
-    per_call = cfg.n_multi_hot if name == "xdeepfm" else 0
+    per_call = 1 if name == "xdeepfm" else 0  # every multi-hot field at once
     for r in range(1 + SERVE_REQUESTS):
         args = recsys_request(name, cfg, shape, seed, r)
         eb = mods["embedding_bag"].LAUNCHES
@@ -517,24 +522,20 @@ def serve_requests(name, arch, cfg, model, seed, device):
     return summary
 
 
-def profile_request(arch, cfg, model, name, seed, device, top=6):
-    """Device time of one ``serve_p99`` request by kernel (the profiler's
-    sums), with the card's busy share of the request's host time."""
+def profile_call(fn, top=6):
+    """Device time of one call of ``fn`` by kernel (the profiler's sums,
+    after one warm-up call), with the number of device operations and the
+    card's busy share of the call's host time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.launch.api import to_device
-
-    shape = arch.shapes["serve_p99"]
-    step = arch.make_step(cfg, shape).step_fn
-    args = recsys_request(name, cfg, shape, seed, 0)
-    step(model, *to_device(args, device))
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(model, *to_device(args, device))
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = [(e.key, e.self_device_time_total, e.count)
@@ -545,8 +546,19 @@ def profile_request(arch, cfg, model, name, seed, device, top=6):
     rows.sort(key=lambda r: -r[1])
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy / 1e3,
             "device_busy_share": busy / 1e6 / wall,
+            "device_ops": sum(r[2] for r in rows),
             "top_kernels": [{"name": k[:80], "ms": t / 1e3, "count": c}
                             for k, t, c in rows[:top]]}
+
+
+def profile_request(arch, cfg, model, name, seed, device):
+    """``profile_call`` of one ``serve_p99`` request, inputs copied in."""
+    from repro_torch.launch.api import to_device
+
+    shape = arch.shapes["serve_p99"]
+    step = arch.make_step(cfg, shape).step_fn
+    args = recsys_request(name, cfg, shape, seed, 0)
+    return profile_call(lambda: step(model, *to_device(args, device)))
 
 
 def phase_recsys(device, seed):
@@ -589,8 +601,8 @@ def phase_recsys(device, seed):
             scores = step(model, *dev_args)
             torch.cuda.synchronize()
             bulk_s = time.perf_counter() - t0
-            check(mods["embedding_bag"].LAUNCHES - eb == cfg.n_multi_hot,
-                  "serve_bulk: EmbeddingBag not launched once per field")
+            check(mods["embedding_bag"].LAUNCHES - eb == 1,
+                  "serve_bulk: EmbeddingBag not launched once per call")
             cpu_model = _cpu_copy(model, name)
             cpu_scores = arch.make_step(cfg, shape, device="cpu").step_fn(
                 cpu_model, *to_device(_head(args, CHECK_ROWS), "cpu"))
@@ -666,6 +678,8 @@ def phase_recsys(device, seed):
                     v[:, :CHECK_ROWS], cpu_v, f"{name} retrieval")}
             if name == "sasrec":
                 keep["retrieval_scores"] = scores.contiguous()
+                res["retrieval_cand"]["profile"] = profile_call(
+                    lambda: step(model, *dev_args))
             del scores
         res["peak_device_gb"] = torch.cuda.max_memory_allocated() / 1e9
         result["archs"][name] = res
@@ -689,7 +703,6 @@ def phase_kernels(paper, deep, recsys, launches):
     from repro_torch.core import measures as M
     from repro_torch.kernels import fused_measures as FM
     from repro_torch.kernels import ops
-    from repro_torch.kernels import topk as TK
 
     rows = []
     # B1: the fused-measure pass at phase B's padded batch
@@ -734,39 +747,27 @@ def phase_kernels(paper, deep, recsys, launches):
     ev, buf = deep
     batch = ev.batch_from_buffer(buf, topk_layout=True)
     k = min(ev._topk_depth, batch.scores.shape[1])
-    scores_m = torch.where(batch.mask, batch.scores, -torch.inf)
+    scores_m = torch.where(batch.mask, batch.scores, -torch.inf).contiguous()
     del batch
-    q, d = scores_m.shape
-    v, i = TK.topk(scores_m, k)
-    pv, pi = TK.topk_plain(scores_m, k)
-    torch.cuda.synchronize()
-    check(torch.equal(i, pi), "top-k kernel indices differ from plain")
-    check(torch.equal(v, pv), "top-k kernel values differ from plain")
-    finite = torch.isfinite(pv)
-    err = float((v[finite] - pv[finite]).abs().max()) if finite.any() else 0.0
-    nbytes = q * d * 4 + q * k * 8
-    ms = time_ms(lambda: TK.topk(scores_m, k), iters=10)
-    plain_ms = time_ms(lambda: TK.topk_plain(scores_m, k), iters=10)
-    library_ms = time_ms(lambda: torch.topk(scores_m, k), iters=10)
-    rows.append(dict(
-        name="topk", route="cuda", source="src/repro_torch/csrc/topk.cu",
-        replaces="src/repro/kernels/topk.py:36", launches=launches["topk"],
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, shape=[q, d, k],
-        bound_ms=max(nbytes / HBM_BYTES_PER_S, q * d / FP32_FLOPS_PER_S)
-        * 1e3,
-        bound_by="bytes", library_ms=library_ms))
-    del scores_m, v, i, pv, pi
+    rows.append(topk_row(scores_m, k, launches["topk"], split=False))
+    del scores_m
 
     # B2 again, at the retrieval shape [1, 1,000,000], k = 1,000 (phase E)
     rows.append(topk_row(recsys["retrieval_scores"], 1000,
-                         launches["topk_retrieval"]))
-    # B3: one xDeepFM multi-hot field of phase E's serve_bulk batch
-    rows.append(embedding_bag_row(recsys["xdeepfm"],
-                                  launches["embedding_bag"]))
+                         launches["topk_retrieval"], split=True))
+    # B3: every multi-hot field of phase E's serve_bulk batch in one call,
+    # with the general wrapper at one field's bags beside it
+    row = embedding_bag_row(recsys["xdeepfm"], launches["embedding_bag"])
+    row["general_wrapper_one_field"] = embedding_bag_csr_row(
+        recsys["xdeepfm"])
+    rows.append(row)
     return rows
 
 
-def topk_row(scores, k, launches):
+def topk_row(scores, k, launches, split):
+    """B2 at ``scores`` against its plain version (exact), with times, the
+    bound and the kernels one call launched, as the C entry counts them:
+    one pass, or two (chunks, then their merge) when ``split``."""
     import torch
 
     from repro_torch.kernels import topk as TK
@@ -777,11 +778,18 @@ def topk_row(scores, k, launches):
     torch.cuda.synchronize()
     check(torch.equal(i, pi), "top-k kernel indices differ from plain")
     check(torch.equal(v, pv), "top-k kernel values differ from plain")
+    finite = torch.isfinite(pv)
+    err = float((v[finite] - pv[finite]).abs().max()) if finite.any() else 0.0
+    before = TK.KERNEL_LAUNCHES
+    TK.topk(scores, k)
+    per_call = TK.KERNEL_LAUNCHES - before
+    check(per_call == (2 if split else 1),
+          f"top-k at {[q, d]} launched {per_call} kernels a call")
     nbytes = q * d * 4 + q * k * 8
     return dict(
         name="topk", route="cuda", source="src/repro_torch/csrc/topk.cu",
         replaces="src/repro/kernels/topk.py:36", launches=launches,
-        max_abs_err=float((v - pv).abs().max()),
+        kernel_launches_per_call=per_call, max_abs_err=err,
         ms=time_ms(lambda: TK.topk(scores, k), iters=10),
         plain_ms=time_ms(lambda: TK.topk_plain(scores, k), iters=10),
         shape=[q, d, k],
@@ -791,12 +799,77 @@ def topk_row(scores, k, launches):
         library_ms=time_ms(lambda: torch.topk(scores, k), iters=10))
 
 
-def embedding_bag_row(xdeepfm, launches, field=0):
-    """B3 at the serve_bulk per-field shape: L = 262,144 x 8 lookups into
-    262,144 bags of the 39M-row table.  Held bit for bit against the plain
-    version run on the CPU (which sums each bag in lookup order, as the
-    kernel does) and, within 1e-6, against the plain version on the card,
-    whose ``index_add_`` adds with atomics in no fixed order."""
+def embedding_bag_row(xdeepfm, launches):
+    """B3's all-fields call at the serve_bulk batch: 262,144 rows x 3
+    multi-hot fields x 8 lookups (mask as weights) into the 39M-row table,
+    one launch.  Held bit for bit against the plain version run on the CPU
+    and on the card (both sum each bag in lookup order, as the kernel
+    does)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import embedding_bag as EB
+
+    model, cfg, batch = xdeepfm
+    table = model.table.detach()
+    ids, mask = batch["mh_ids"], batch["mh_mask"]  # [B, F, M] i32, bool
+    b, f, m = ids.shape
+    vocab = cfg.table.vocab_per_field
+    bags, bag_mask = ids.reshape(b * f, m), mask.reshape(b * f, m)
+    got = EB.embedding_bag_fixed(table, bags, bag_mask, f, vocab)
+    plain = EB.embedding_bag_fixed_plain(table, bags, bag_mask, f, vocab)
+    rows = (bags.long() + (torch.arange(b * f, device=ids.device) % f
+                           * vocab)[:, None])  # [B·F, M] table rows
+    # the plain version on the CPU, on the gathered rows (the same function
+    # of the same inputs, without copying the 1.6 GB table to the host)
+    gathered = table[rows.reshape(-1)].cpu()
+    cpu = EB.embedding_bag_fixed_plain(
+        gathered, torch.arange(b * f * m, dtype=torch.int32).reshape(b * f, m),
+        bag_mask.cpu())
+    torch.cuda.synchronize()
+    check(bool((got.cpu() == cpu).all()),
+          "EmbeddingBag kernel differs from the plain version on the CPU")
+    check(bool((got == plain).all()),
+          "EmbeddingBag kernel differs from the plain version on the card")
+    e = table.shape[1]
+    l = b * f * m
+    unique_rows = int(torch.unique(rows).numel())
+    # each touched row read once, int32 id + bool mask per lookup, the bags
+    # written once; a multiply and an add per lookup and column
+    nbytes = unique_rows * e * 4 + l * 5 + b * f * e * 4
+    flops = 2 * l * e
+    lib_w = bag_mask.to(torch.float32)
+    before = EB.LAUNCHES
+    EB.embedding_bag_fixed(table, bags, bag_mask, f, vocab)
+    per_call = EB.LAUNCHES - before
+    check(per_call == 1,
+          f"the all-fields EmbeddingBag call launched {per_call} kernels")
+    return dict(
+        name="embedding_bag", route="cuda",
+        source="src/repro_torch/csrc/embedding_bag.cu",
+        replaces="src/repro/kernels/embedding_bag.py:34", launches=launches,
+        kernel_launches_per_call=per_call,
+        max_abs_err=float((got - plain).abs().max()),
+        bit_identical_to_cpu_plain=True,
+        ms=time_ms(lambda: EB.embedding_bag_fixed(table, bags, bag_mask, f,
+                                                  vocab)),
+        plain_ms=time_ms(lambda: EB.embedding_bag_fixed_plain(
+            table, bags, bag_mask, f, vocab)),
+        shape=[int(table.shape[0]), e, l, b * f], unique_rows=unique_rows,
+        bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S)
+        * 1e3,
+        bound_by="bytes" if nbytes / HBM_BYTES_PER_S
+        >= flops / FP32_FLOPS_PER_S else "operations",
+        library_ms=time_ms(lambda: F.embedding_bag(
+            rows, table, mode="sum", per_sample_weights=lib_w)))
+
+
+def embedding_bag_csr_row(xdeepfm, field=0):
+    """B3's general wrapper (stable sort by bag, CSR offsets, host range
+    check) at one field of the serve_bulk batch, the per-field shape:
+    L = 262,144 x 8 lookups into 262,144 bags.  Off the main path since
+    the all-fields call; bit for bit against the plain version on the CPU,
+    within 1e-6 of the one on the card (``index_add_`` with atomics)."""
     import torch
     import torch.nn.functional as F
 
@@ -812,31 +885,29 @@ def embedding_bag_row(xdeepfm, launches, field=0):
     w = mask.reshape(-1).to(torch.float32)
     got = EB.embedding_bag(table, idx, seg, b, w)
     plain = EB.embedding_bag_plain(table, idx, seg, b, w)
-    # the plain version on the CPU, on the gathered rows (the same function
-    # of the same inputs, without copying the 1.6 GB table to the host)
     rows = table[idx.long()].cpu()
     cpu = EB.embedding_bag_plain(rows, torch.arange(b * m), seg.cpu(), b,
                                  w.cpu())
     torch.cuda.synchronize()
     check(bool((got.cpu() == cpu).all()),
-          "EmbeddingBag kernel differs from the plain version on the CPU")
+          "EmbeddingBag CSR kernel differs from the plain version on the CPU")
     check(torch.allclose(got, plain, atol=1e-6, rtol=1e-6),
-          "EmbeddingBag kernel beyond 1e-6 of the plain version on the card")
+          "EmbeddingBag CSR kernel beyond 1e-6 of the plain version")
     e = table.shape[1]
     l = idx.numel()
     unique_rows = int(torch.unique(idx).numel())
-    # each touched row read once, index + bag id + weight per lookup, the
-    # bags written once; a multiply and an add per lookup and column
     nbytes = unique_rows * e * 4 + l * 12 + b * e * 4
     flops = 2 * l * e
     prepared = EB.prepare(idx, seg, b, w)
     lib_ids, lib_w = ids.long(), mask.to(torch.float32)
+    before = EB.LAUNCHES
+    EB.embedding_bag(table, idx, seg, b, w)
+    per_call = EB.LAUNCHES - before
+    check(per_call == 1,
+          f"the general EmbeddingBag wrapper launched {per_call} kernels")
     return dict(
-        name="embedding_bag", route="cuda",
-        source="src/repro_torch/csrc/embedding_bag.cu",
-        replaces="src/repro/kernels/embedding_bag.py:34", launches=launches,
+        kernel_launches_per_call=per_call,
         max_abs_err=float((got - plain).abs().max()),
-        bit_identical_to_cpu_plain=True,
         ms=time_ms(lambda: EB.embedding_bag(table, idx, seg, b, w)),
         kernel_only_ms=time_ms(lambda: EB.launch(table, *prepared, b)),
         plain_ms=time_ms(lambda: EB.embedding_bag_plain(table, idx, seg, b,

@@ -6,29 +6,43 @@
 // indices pick the table row block to DMA, and consecutive lookups of one
 // bag revisit the same output block in VMEM, accumulating into it (each bag
 // is seeded with a zero-weight lookup so an empty bag is written).  Blocks
-// on a GPU run in no order and carry nothing between them, so here the
-// lookups arrive as CSR: the wrapper stable-sorts them by bag id and passes
-// offsets[n_bags + 1].  One thread owns one (bag, column) pair and walks its
-// bag's lookups in order, acc = acc + table[idx] * w (multiplied, rounded,
-// then added: the Pallas kernel's order and rounding), and writes the sum
-// once.  An empty bag writes 0; no seed lookup and no atomics, so the result
-// is deterministic and sums each bag in the plain version's order.
+// on a GPU run in no order and carry nothing between them, so here a thread
+// owns one (bag, column) -- or two neighbouring columns -- walks its bag's
+// lookups in order, acc = acc + table[idx] * w (multiplied, rounded, then
+// added: the Pallas kernel's order and rounding), and writes the sum once.
+// No seed lookup and no atomics: the result is deterministic and sums each
+// bag in the plain version's order.  Two entry points:
 //
-// Neighbouring threads take neighbouring columns of a row, so a row gather
-// is contiguous.  Any width E is taken: xDeepFM's E = 10 gives 40-byte rows,
-// not 16-byte aligned, so the loads are 4 bytes a thread.
+// * Fixed-length bags (the recsys multi-hot fields): ids [n_bags, m], bag n
+//   owns lookups [n·m, n·m + m), so the offsets are implicit and the
+//   lookups need no sort.  Bag n belongs to field n % fields, whose ids are
+//   offset by field · field_rows, so one launch covers every multi-hot
+//   field of a batch.  Each lookup weighs its bool mask entry (1 / 0), or
+//   1 without a mask.  m = 8 (xDeepFM's) is a template constant, so the
+//   eight row loads are issued together before the in-order adds.  Rows of
+//   an even width E (xDeepFM: 40 bytes) are read as 8-byte pairs.  An id
+//   outside [0, V) stops the kernel with __trap(): nothing out of range is
+//   read, no host sync is needed, and the failure shows at the next
+//   synchronisation.  Masked-out lookups are still multiplied in: in the
+//   reference a non-finite row times 0 is NaN.
+// * Any order (CSR): the wrapper stable-sorts the lookups by bag and passes
+//   offsets[n_bags + 1]; lookups are read eight at a time, loads first.
 //
-// Bound on this card: bytes.  A lookup moves its row (4·E bytes), its index,
-// weight and (amortised) offset: about 52 B at E = 10, plus 4·E bytes out
-// per bag; one multiply and one add per element.  A 40-byte row at a random
-// address touches 2-3 of the 32-byte sectors the memory system moves, so the
-// practical floor lies above that count.  Table rows are addressed with
-// 64-bit arithmetic: tables of 10^9 rows overflow 32-bit offsets.
+// Bound on this card: bytes.  A lookup moves its index and weight (8 B;
+// 5 B with a bool mask) and, the first time it is touched, its row (4·E bytes); each bag is
+// written once (4·E bytes); one multiply and one add per element.  A
+// 40-byte row at a random address touches 2-3 of the 32-byte sectors the
+// memory system moves, so the practical floor lies above that count.
+// Table rows are addressed with 64-bit arithmetic: tables of 10^9 rows
+// overflow 32-bit offsets.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-__global__ void __launch_bounds__(256)
+constexpr int kThreads = 256;
+
+__global__ void __launch_bounds__(kThreads)
     embedding_bag_kernel(const float* __restrict__ table,
                          const int* __restrict__ idx,
                          const float* __restrict__ w,
@@ -41,29 +55,185 @@ __global__ void __launch_bounds__(256)
   const int col = static_cast<int>(t - bag * e);
   const long long hi = offsets[bag + 1];
   float acc = 0.0f;
-  for (long long i = offsets[bag]; i < hi; ++i) {
+  long long i = offsets[bag];
+  for (; i + 8 <= hi; i += 8) {
+    float x[8], wt[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      wt[j] = w[i + j];
+      x[j] = table[static_cast<long long>(idx[i + j]) * e + col];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc = __fadd_rn(acc, __fmul_rn(x[j], wt[j]));
+  }
+  for (; i < hi; ++i) {
     const float x = table[static_cast<long long>(idx[i]) * e + col];
     acc = __fadd_rn(acc, __fmul_rn(x, w[i]));
   }
   out[t] = acc;
 }
 
+// Weight of lookup j: 1 without a mask, else the mask as 1 / 0 (the
+// reference's mask.astype(float32)).
+__device__ __forceinline__ float weight(const unsigned char* mask, int j) {
+  return mask ? (mask[j] ? 1.0f : 0.0f) : 1.0f;
+}
+
+template <int VEC>
+struct Cols;
+template <>
+struct Cols<1> {
+  float x;
+  __device__ __forceinline__ void zero() { x = 0.0f; }
+  __device__ __forceinline__ void load(const float* p) { x = __ldg(p); }
+  __device__ __forceinline__ void add(const Cols& r, float w) {
+    x = __fadd_rn(x, __fmul_rn(r.x, w));
+  }
+  __device__ __forceinline__ void store(float* p) const { p[0] = x; }
+};
+template <>
+struct Cols<2> {
+  float x, y;
+  __device__ __forceinline__ void zero() { x = y = 0.0f; }
+  __device__ __forceinline__ void load(const float* p) {
+    const float2 f = __ldg(reinterpret_cast<const float2*>(p));
+    x = f.x;
+    y = f.y;
+  }
+  __device__ __forceinline__ void add(const Cols& r, float w) {
+    x = __fadd_rn(x, __fmul_rn(r.x, w));
+    y = __fadd_rn(y, __fmul_rn(r.y, w));
+  }
+  __device__ __forceinline__ void store(float* p) const {
+    *reinterpret_cast<float2*>(p) = make_float2(x, y);
+  }
+};
+
+// One thread per (bag, VEC columns).  M > 0: m == M, fully unrolled.
+template <int M, int VEC>
+__global__ void __launch_bounds__(kThreads)
+    embedding_bag_fixed_kernel(const float* __restrict__ table,
+                               long long v_rows, int e,
+                               const int* __restrict__ ids,
+                               const unsigned char* __restrict__ mask,
+                               long long n_bags,
+                               int m_runtime, int fields,
+                               long long field_rows,
+                               float* __restrict__ out) {
+  const int m = M > 0 ? M : m_runtime;
+  const int lanes = e / VEC;  // threads per bag
+  const long long t =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= n_bags * lanes) return;
+  const long long bag = t / lanes;
+  const int col = static_cast<int>(t - bag * lanes) * VEC;
+  const long long first = (bag % fields) * field_rows;
+  const int* bag_ids = ids + bag * m;
+  const unsigned char* bag_mask = mask ? mask + bag * m : nullptr;
+  Cols<VEC> acc;
+  acc.zero();
+  if constexpr (M > 0) {
+    Cols<VEC> x[M];
+    float wt[M];
+#pragma unroll
+    for (int j = 0; j < M; ++j) {
+      const long long row = __ldg(bag_ids + j) + first;
+      if (static_cast<unsigned long long>(row) >=
+          static_cast<unsigned long long>(v_rows)) {
+        __trap();
+      }
+      wt[j] = weight(bag_mask, j);
+      x[j].load(table + row * e + col);
+    }
+#pragma unroll
+    for (int j = 0; j < M; ++j) acc.add(x[j], wt[j]);
+  } else {
+#pragma unroll 8
+    for (int j = 0; j < m; ++j) {
+      const long long row = __ldg(bag_ids + j) + first;
+      if (static_cast<unsigned long long>(row) >=
+          static_cast<unsigned long long>(v_rows)) {
+        __trap();
+      }
+      Cols<VEC> x;
+      x.load(table + row * e + col);
+      acc.add(x, weight(bag_mask, j));
+    }
+  }
+  acc.store(out + bag * e + col);
+}
+
+template <int M, int VEC>
+void launch_fixed(const float* table, long long v, int e, const int* ids,
+                  const unsigned char* mask, long long n_bags, int m,
+                  int fields, long long field_rows, float* out,
+                  cudaStream_t st) {
+  const long long total = n_bags * (e / VEC);
+  const unsigned int blocks =
+      static_cast<unsigned int>((total + kThreads - 1) / kThreads);
+  embedding_bag_fixed_kernel<M, VEC><<<blocks, kThreads, 0, st>>>(
+      table, v, e, ids, mask, n_bags, m, fields, field_rows, out);
+}
+
+template <int VEC>
+void launch_fixed_m(const float* table, long long v, int e, const int* ids,
+                    const unsigned char* mask, long long n_bags, int m,
+                    int fields, long long field_rows, float* out,
+                    cudaStream_t st) {
+  if (m == 8) {  // xDeepFM's multi-hot length
+    launch_fixed<8, VEC>(table, v, e, ids, mask, n_bags, m, fields,
+                         field_rows, out, st);
+  } else {
+    launch_fixed<0, VEC>(table, v, e, ids, mask, n_bags, m, fields,
+                         field_rows, out, st);
+  }
+}
+
 }  // namespace
 
 // table: [v, e] f32; idx, w: [l] i32 / f32, sorted by bag (stable);
 // offsets: [n_bags + 1] i64, bag b's lookups are [offsets[b], offsets[b+1]);
-// out: [n_bags, e] f32.  Launches on `stream`; returns cudaGetLastError().
+// out: [n_bags, e] f32.  Launches on `stream`, sets *launched to the number
+// of kernels launched (0 for an empty grid); returns cudaGetLastError().
 extern "C" int embedding_bag_launch(const float* table, const int* idx,
                                     const float* w, const long long* offsets,
                                     float* out, long long n_bags, int e,
-                                    void* stream) {
-  const int threads = 256;
+                                    void* stream, int* launched) {
+  *launched = 0;
   const long long total = n_bags * e;
   if (total > 0) {
-    const long long blocks = (total + threads - 1) / threads;
-    embedding_bag_kernel<<<static_cast<unsigned int>(blocks), threads, 0,
+    const long long blocks = (total + kThreads - 1) / kThreads;
+    embedding_bag_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
         table, idx, w, offsets, out, n_bags, e);
+    ++*launched;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// table: [v, e] f32; ids: [n_bags, m] i32; mask: [n_bags, m] bool, or null
+// (every lookup weighs 1); bag n adds (n % fields) · field_rows to its ids.
+// vec2: read rows as float2 (e even, table 8-byte aligned).
+// out: [n_bags, e] f32.  Launches on `stream`, sets *launched to the number
+// of kernels launched; returns cudaGetLastError().
+extern "C" int embedding_bag_fixed_launch(const float* table, long long v,
+                                          int e, const int* ids,
+                                          const unsigned char* mask,
+                                          long long n_bags, int m,
+                                          int fields, long long field_rows,
+                                          int vec2, float* out,
+                                          void* stream, int* launched) {
+  *launched = 0;
+  if (n_bags > 0 && e > 0) {
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (vec2) {
+      launch_fixed_m<2>(table, v, e, ids, mask, n_bags, m, fields,
+                        field_rows, out, st);
+    } else {
+      launch_fixed_m<1>(table, v, e, ids, mask, n_bags, m, fields,
+                        field_rows, out, st);
+    }
+    ++*launched;
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,13 +3,22 @@
 The counterpart of ``repro.kernels.embedding_bag``: the weighted sum of
 table rows per bag, ``out[b] = Σ_{i: seg[i]=b} w[i] · table[idx[i]]``,
 each bag summed in lookup order, an empty bag 0.  The kernel
-(``csrc/embedding_bag.cu``) gives one thread to each (bag, column) pair;
-the wrapper stable-sorts the lookups by bag id and builds CSR offsets
-around it with plain torch ops, as the JAX wrapper sorts around its Pallas
-kernel.
+(``csrc/embedding_bag.cu``) gives one thread to each (bag, column) pair
+and has two entry points:
 
-:func:`embedding_bag` launches the kernel for a CUDA tensor and uses
-:func:`embedding_bag_plain` only for a CPU tensor.
+* :func:`embedding_bag_fixed` — bags of a fixed length m, ids ``[N, m]``
+  with a bool mask (the recsys multi-hot fields): no sort, no offsets, no
+  host sync; an id out of range stops the kernel on the device.  Bag n may belong to field
+  ``n % fields`` with ids offset by ``field · field_rows``, so one launch
+  covers every multi-hot field of a batch.
+* :func:`embedding_bag` — lookups in any order: the wrapper stable-sorts
+  them by bag id and builds CSR offsets with plain torch ops, as the JAX
+  wrapper sorts around its Pallas kernel, and checks ids on the host.
+
+Each launches the kernel for a CUDA tensor and uses its plain version
+(:func:`embedding_bag_fixed_plain`, :func:`embedding_bag_plain`) only for
+a CPU tensor.  ``LAUNCHES`` counts the kernel launches of both, as their
+C entry points report them.
 """
 
 from __future__ import annotations
@@ -65,12 +74,14 @@ def _check(table, indices, segment_ids, n_bags, weights):
                          f"segment id outside [0, {n_bags})")
 
 
-def _lib():
-    lib = _build.load("embedding_bag")
-    fn = lib.embedding_bag_launch
+def _lib(entry="embedding_bag_launch"):
+    fn = getattr(_build.load("embedding_bag"), entry)
     if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, p, p, ctypes.c_longlong, ctypes.c_int, p]
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = (
+            [p, p, p, p, p, ll, i, p] if entry == "embedding_bag_launch"
+            else [p, ll, i, p, p, ll, i, i, ll, i, p, p]) + [
+                ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
     return fn
 
@@ -97,15 +108,16 @@ def launch(table, idx_s, w_s, offsets, n_bags):
     out = torch.empty((n_bags, e), dtype=torch.float32, device=table.device)
     if -(-n_bags * e // _THREADS) > _MAX_BLOCKS:
         raise ValueError(f"{n_bags} bags x {e} columns exceed one grid")
+    launched = ctypes.c_int(0)
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
         rc = _lib()(table.data_ptr(), idx_s.data_ptr(), w_s.data_ptr(),
-                    offsets.data_ptr(), out.data_ptr(), n_bags, e, stream)
+                    offsets.data_ptr(), out.data_ptr(), n_bags, e, stream,
+                    ctypes.byref(launched))
     if rc != 0:
         raise RuntimeError(
             f"embedding_bag kernel launch failed: CUDA error {rc}")
-    if n_bags * e:  # the C entry point launches nothing for an empty grid
-        LAUNCHES += 1
+    LAUNCHES += launched.value  # none for an empty grid
     return out
 
 
@@ -131,3 +143,98 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
         raise ValueError("the kernel takes int32 row indices: V <= 2**31")
     return launch(table, *prepare(indices, segment_ids, n_bags, weights),
                   n_bags)
+
+
+def _field_rows(n, fields, field_rows, device):
+    """``[n, 1]`` row offsets of bags 0..n-1: ``(bag % fields) ·
+    field_rows``."""
+    return (torch.arange(n, device=device) % fields * field_rows)[:, None]
+
+
+def embedding_bag_fixed_plain(table, ids, mask=None, fields: int = 1,
+                              field_rows: int = 0):
+    """Gather, multiply by the mask (1 / 0), and add the m lookups of each
+    bag in order from 0: the kernel's sum, one rounded operation at a
+    time."""
+    n, m = ids.shape
+    rows = ids.long()
+    if field_rows:
+        rows = rows + _field_rows(n, fields, field_rows, ids.device)
+    x = table[rows]  # [n, m, E]
+    if mask is not None:
+        x = x * mask.to(table.dtype)[..., None]
+    out = torch.zeros((n, table.shape[1]), dtype=table.dtype,
+                      device=table.device)
+    for j in range(m):
+        out = out + x[:, j]
+    return out
+
+
+def embedding_bag_fixed(table: torch.Tensor, ids: torch.Tensor,
+                        mask: torch.Tensor | None = None,
+                        fields: int = 1, field_rows: int = 0) -> torch.Tensor:
+    """Masked sum of the m rows of each fixed-length bag → ``[N, E]`` f32.
+
+    ``table`` ``[V, E]`` f32; ``ids`` ``[N, m]`` int32, bag n's lookups in
+    order; ``mask`` ``[N, m]`` bool (each lookup weighs 1 / 0), default
+    all 1.  Bag n's ids are offset by ``(n % fields) · field_rows``.  A
+    CUDA tensor goes through the kernel: the checks below need no sync,
+    and a row outside ``[0, V)`` stops the kernel with a device-side trap
+    (the error shows at the next synchronisation).  A CPU tensor goes
+    through :func:`embedding_bag_fixed_plain`, after a range check that
+    raises.
+    """
+    if table.dim() != 2 or ids.dim() != 2:
+        raise ValueError(f"table must be [V, E] and ids [N, m], got "
+                         f"{tuple(table.shape)} and {tuple(ids.shape)}")
+    if mask is not None and (mask.shape != ids.shape
+                             or mask.dtype != torch.bool):
+        raise ValueError("mask must be a bool [N, m] like ids")
+    if fields < 1 or field_rows < 0:
+        raise ValueError(f"need fields >= 1 and field_rows >= 0, got "
+                         f"{fields}, {field_rows}")
+    tensors = [table, ids] + ([] if mask is None else [mask])
+    if any(t.device != table.device for t in tensors):
+        raise ValueError("table, ids and mask must lie on one device")
+    if table.device.type == "cpu":
+        if ids.is_floating_point():
+            raise ValueError("ids must be an integer tensor")
+        rows = ids.long()
+        if field_rows and ids.numel():
+            rows = rows + _field_rows(ids.shape[0], fields, field_rows,
+                                      ids.device)
+        if ids.numel() and bool(((rows < 0)
+                                 | (rows >= table.shape[0])).any()):
+            raise ValueError(f"a row is outside [0, {table.shape[0]})")
+        return embedding_bag_fixed_plain(table, ids, mask, fields,
+                                         field_rows)
+    if table.device.type != "cuda":
+        raise ValueError(f"unsupported device {table.device}")
+    if table.dtype != torch.float32 or not table.is_contiguous():
+        raise ValueError("table must be a contiguous float32 tensor")
+    if ids.dtype != torch.int32 or not ids.is_contiguous():
+        raise ValueError("ids must be a contiguous int32 tensor")
+    if mask is not None and not mask.is_contiguous():
+        raise ValueError("mask must be contiguous")
+    n, m = ids.shape
+    v, e = table.shape
+    out = torch.empty((n, e), dtype=torch.float32, device=table.device)
+    if n == 0 or e == 0:
+        return out
+    vec2 = e % 2 == 0 and table.data_ptr() % 8 == 0
+    if -(-n * (e // 2 if vec2 else e) // _THREADS) > _MAX_BLOCKS:
+        raise ValueError(f"{n} bags x {e} columns exceed one grid")
+    launched = ctypes.c_int(0)
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream(table.device).cuda_stream
+        rc = _lib("embedding_bag_fixed_launch")(
+            table.data_ptr(), v, e, ids.data_ptr(),
+            0 if mask is None else mask.data_ptr(), n, m,
+            fields, field_rows, int(vec2), out.data_ptr(), stream,
+            ctypes.byref(launched))
+    if rc != 0:
+        raise RuntimeError(
+            f"embedding_bag kernel launch failed: CUDA error {rc}")
+    global LAUNCHES
+    LAUNCHES += launched.value
+    return out

@@ -33,6 +33,14 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
     return _eb.embedding_bag(table, indices, segment_ids, n_bags, weights)
 
 
+def embedding_bag_fixed(table: torch.Tensor, ids: torch.Tensor,
+                        mask: torch.Tensor | None = None, fields: int = 1,
+                        field_rows: int = 0) -> torch.Tensor:
+    """Masked sum of the rows of fixed-length bags ``ids [N, m]``, bag n's
+    ids offset by ``(n % fields) · field_rows``; ``[N, E]`` f32."""
+    return _eb.embedding_bag_fixed(table, ids, mask, fields, field_rows)
+
+
 def fused_measures_cols(rel_sorted, judged_sorted, scalars,
                         relevance_level: float = 1.0) -> torch.Tensor:
     """All fused measure columns, ``[Q, 64]`` f32."""

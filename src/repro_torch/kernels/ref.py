@@ -2,7 +2,8 @@
 
 ``topk_ref`` orders on the host with numpy's lexsort; ``fused_measures_ref``
 rebuilds every fused column from the measure core's column functions;
-``embedding_bag_ref`` sums each bag on the host in float64.
+``embedding_bag_ref`` and ``embedding_bag_fixed_ref`` sum each bag on the
+host in float64.
 """
 
 from __future__ import annotations
@@ -85,4 +86,22 @@ def embedding_bag_ref(table, indices, segment_ids, n_bags, weights=None):
         rows = rows * w[:, None]
     out = np.zeros((n_bags, tab.shape[1]), np.float64)
     np.add.at(out, seg, rows)
+    return torch.from_numpy(out.astype(np.float32)).to(table.device)
+
+
+def embedding_bag_fixed_ref(table, ids, mask=None, fields=1,
+                            field_rows=0):
+    """Fixed-length bags ``ids [N, m]`` (bag n's ids offset by
+    ``(n % fields) · field_rows``, lookups weighed by ``mask``) summed in
+    float64 on the host, rounded to f32 once: within f32 rounding of the
+    kernel, not bit-identical."""
+    tab = table.detach().cpu().numpy().astype(np.float64)
+    rows = ids.detach().cpu().numpy().astype(np.int64)
+    n = rows.shape[0]
+    rows = rows + (np.arange(n) % fields * field_rows)[:, None]
+    x = tab[rows]  # [N, m, E]
+    if mask is not None:
+        with np.errstate(invalid="ignore"):  # inf · 0 is NaN, as on the card
+            x = x * mask.detach().cpu().numpy().astype(np.float64)[..., None]
+    out = x.sum(axis=1) if rows.shape[1] else np.zeros((n, tab.shape[1]))
     return torch.from_numpy(out.astype(np.float32)).to(table.device)

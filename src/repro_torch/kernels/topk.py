@@ -1,12 +1,15 @@
 """Per-row top-k: the hand-written CUDA kernel and its plain PyTorch version.
 
 The counterpart of ``repro.kernels.topk`` + ``repro.kernels.bitonic``.  The
-kernel (``csrc/topk.cu``) bitonic-sorts each ``block_d`` tile of a row's
-(score, column) pairs in shared memory and merges it into a running
-``k2 = next_pow2(k, 128)`` buffer; ``block_d = max(2·k2, 512)`` as in the
-Pallas kernel.  Order: value descending, ties to the lower column
-(``jax.lax.top_k``'s rule).  Rows shorter than k come back padded with
--inf and out-of-range indices (>= D), as from the Pallas kernel.
+kernel (``csrc/topk.cu``) packs each (score, column) into a 64-bit key,
+stages only the keys above the block's running k-th, keeps the k largest
+with radix selects, and bitonic-sorts the final k (padded to
+``k2 = next_pow2(k, 128)``) in shared memory.  When Q rows cannot fill
+the card, each row is cut into S chunks: pass 1 writes every chunk's
+top-k keys to scratch ``[Q, S, k]``, pass 2 merges them (:func:`splits`).
+Order: value descending, ties to the lower column (``jax.lax.top_k``'s
+rule).  Rows shorter than k come back padded with -inf and out-of-range
+indices (>= D), as from the Pallas kernel.
 
 :func:`topk` launches the kernel for a CUDA tensor and uses
 :func:`topk_plain` only for a CPU tensor.
@@ -15,20 +18,45 @@ Pallas kernel.  Order: value descending, ties to the lower column
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.bucketing import next_pow2
 
-#: kernel launches since the count was last set to 0 (plain calls excluded)
+#: calls that launched the kernel since the count was last set to 0 (one
+#: per call, whether it ran one pass or two; plain calls excluded)
 LAUNCHES = 0
+#: kernels those calls launched, as the C entry reports them (two a call
+#: when rows are split)
+KERNEL_LAUNCHES = 0
 
 
 def geometry(k: int):
-    """(k2, block_d): the running-buffer and tile widths for depth k."""
+    """(k2, block_d) for depth k: the running-buffer width, and the Pallas
+    kernel's tile width ``max(2·k2, 512)``; a split chunk holds at least
+    two such tiles."""
     k2 = next_pow2(k, 128)
     return k2, max(2 * k2, 512)
+
+
+def splits(q: int, d: int, k: int, n_sm: int) -> int:
+    """Chunks per row: 1 (one pass) when ``q`` fills ``2·n_sm`` blocks;
+    else enough blocks to fill the card, at most ``sqrt(D / k2)`` (pass 1
+    reads D / S scores a block, pass 2 S·k candidates: the two balance
+    there) and at least ``2·block_d`` columns a chunk."""
+    if q >= 2 * n_sm:
+        return 1
+    k2, block_d = geometry(k)
+    s = min(-(-2 * n_sm // q), d // (2 * block_d), math.isqrt(d // k2))
+    return max(1, s)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def topk_plain(scores: torch.Tensor, k: int):
@@ -55,9 +83,9 @@ def _lib():
     lib = _build.load("topk")
     fn = lib.topk_launch
     if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, p]
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, ctypes.c_longlong, p,
+                       ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
     return fn
 
@@ -65,8 +93,8 @@ def _lib():
 def topk(scores: torch.Tensor, k: int):
     """Top-k (values ``[Q, k]`` f32, indices ``[Q, k]`` i32) of each row.
 
-    A CUDA tensor goes through the kernel; a CPU tensor through
-    :func:`topk_plain`.
+    A CUDA tensor goes through the kernel (one call: one launch, or two
+    when rows are split); a CPU tensor through :func:`topk_plain`.
     """
     if scores.dim() != 2:
         raise ValueError(f"scores must be [Q, D], got {tuple(scores.shape)}")
@@ -79,20 +107,30 @@ def topk(scores: torch.Tensor, k: int):
     if scores.dtype != torch.float32 or not scores.is_contiguous():
         raise ValueError("scores must be a contiguous float32 tensor")
     q, d = scores.shape
-    k2, block_d = geometry(k)
-    if k2 > 4096 or d < 1:
-        raise ValueError(f"kernel takes k <= 4096 and D >= 1, got k={k}, "
-                         f"D={d}")
-    out_v = torch.empty((q, k), dtype=torch.float32, device=scores.device)
-    out_i = torch.empty((q, k), dtype=torch.int32, device=scores.device)
+    k2, _ = geometry(k)
+    if k2 > 4096 or d < 1 or d + k2 >= 2**31 - 1:
+        raise ValueError(f"kernel takes k <= 4096 and 1 <= D < 2**31 - k2, "
+                         f"got k={k}, D={d}")
+    dev = scores.device
+    out_v = torch.empty((q, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((q, k), dtype=torch.int32, device=dev)
     if q == 0:
         return out_v, out_i
-    with torch.cuda.device(scores.device):
-        stream = torch.cuda.current_stream(scores.device).cuda_stream
+    with torch.cuda.device(dev):
+        s = splits(q, d, k, _sm_count(dev.index))
+        chunk = -(-d // s)
+        s = -(-d // chunk)  # no empty chunk
+        # pass 1's per-chunk top-k keys (64-bit: score and column)
+        cand = (torch.empty((q, s, k), dtype=torch.int64, device=dev)
+                if s > 1 else None)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        launched = ctypes.c_int(0)
         rc = _lib()(scores.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
-                    q, d, k, k2, block_d, stream)
+                    0 if cand is None else cand.data_ptr(), q, d, k, k2, s,
+                    chunk, stream, ctypes.byref(launched))
     if rc != 0:
         raise RuntimeError(f"topk kernel launch failed: CUDA error {rc}")
-    global LAUNCHES
+    global LAUNCHES, KERNEL_LAUNCHES
     LAUNCHES += 1
+    KERNEL_LAUNCHES += launched.value
     return out_v, out_i

@@ -4,8 +4,10 @@ The counterpart of ``repro.models.embedding``.  Tables for the CTR models
 are one concatenated ``[Σ vocab_f, dim]`` tensor; field offsets turn
 per-field ids into global rows.  Where the JAX package chose the Pallas
 kernel with ``use_kernel``, the port chooses by device through
-:func:`repro_torch.kernels.ops.embedding_bag`: a CUDA table launches the
-hand-written kernel, a CPU table runs its plain version.
+:func:`repro_torch.kernels.ops.embedding_bag` (lookups in any order) and
+:func:`repro_torch.kernels.ops.embedding_bag_fixed` (bags of a fixed
+length, as multi-hot fields are): a CUDA table launches the hand-written
+kernel, a CPU table runs its plain version.
 """
 
 from __future__ import annotations
@@ -76,3 +78,24 @@ def multi_hot_lookup(table, ids, mask, cfg: TableConfig, field: int,
     w = mask.reshape(-1).to(table.dtype)
     return embedding_bag(table, rows.reshape(-1), segs.reshape(-1), b,
                          weights=w, combiner=combiner)
+
+
+def multi_hot_lookup_all(table, ids, mask, cfg: TableConfig,
+                         combiner: str = "sum") -> torch.Tensor:
+    """Every multi-hot field at once: ids ``[B, F_mh, M]`` (padded, mask
+    ``[B, F_mh, M]``) → ``[B, F_mh, dim]``.  Field f is
+    :func:`multi_hot_lookup` of field f (its ids offset by
+    ``f · vocab_per_field``, each bag summed in lookup order): one kernel
+    launch over the ``B · F_mh`` bags, which the layout already groups."""
+    if combiner not in ("sum", "mean"):
+        raise ValueError(f"combiner must be 'sum' or 'mean', got "
+                         f"{combiner!r}")
+    b, f, m = ids.shape
+    out = ops.embedding_bag_fixed(table, ids.reshape(b * f, m),
+                                  mask.reshape(b * f, m), fields=f,
+                                  field_rows=cfg.vocab_per_field)
+    out = out.reshape(b, f, table.shape[1])
+    if combiner == "mean":  # a mask's count is exact in any order
+        counts = mask.to(out.dtype).sum(-1, keepdim=True)
+        out = out / torch.clamp(counts, min=1.0)
+    return out

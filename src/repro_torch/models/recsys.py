@@ -188,15 +188,14 @@ class CTRConfig:
 
 def _sparse_features(params, batch, cfg: CTRConfig):
     """ids ``[B, F]`` (+ optional multi-hot bags) → field embeddings
-    ``[B, F, D]``.  Each multi-hot field is one EmbeddingBag call."""
+    ``[B, F, D]``.  All multi-hot fields are one EmbeddingBag call."""
     tab = params.table
     emb = E.field_lookup(tab, batch["ids"], cfg.table)  # [B, F, D]
     if cfg.n_multi_hot and "mh_ids" in batch:
         # First n_multi_hot fields also receive a bag of extra values.
-        bags = [E.multi_hot_lookup(tab, batch["mh_ids"][:, f],
-                                   batch["mh_mask"][:, f], cfg.table, f)
-                for f in range(cfg.n_multi_hot)]
-        emb[:, :cfg.n_multi_hot] += torch.stack(bags, dim=1)
+        emb[:, :cfg.n_multi_hot] += E.multi_hot_lookup_all(
+            tab, batch["mh_ids"][:, :cfg.n_multi_hot],
+            batch["mh_mask"][:, :cfg.n_multi_hot], cfg.table)
     return emb
 
 

@@ -2,10 +2,14 @@
 
 Edge shapes the smoke test's main path does not reach: one-rank rows,
 rows shorter than every cutoff, tiles cut by D, k above D, several tiles
-merged into the running top-k, heavy ties and signed zeros; EmbeddingBag
-at odd widths, with empty bags, one bag holding every lookup and no
-lookups; and smoke-size recsys steps on the card against the CPU.  Run on
-a machine with a GPU::
+merged into the running top-k, heavy ties and signed zeros; the top-k's
+split path (one to three rows of up to 10^6, misaligned rows, ascending
+and all-equal scores); EmbeddingBag at odd widths, with empty bags, one
+bag holding every lookup and no lookups, and its fixed-length entry and
+the all-fields lookup bit for bit against the CPU, with an out-of-range id
+trapping on the device; both hot-path wrappers under
+``torch.cuda.set_sync_debug_mode("error")``; and smoke-size recsys steps
+on the card against the CPU.  Run on a machine with a GPU::
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -14,6 +18,8 @@ neither JAX nor the JAX package, so it runs where only the port does.
 """
 
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -29,6 +35,7 @@ from repro_torch.kernels import fused_measures as FM
 from repro_torch.kernels import topk as TK
 from repro_torch.launch.api import get_arch, to_device
 from repro_torch.launch.steps import MODELS
+from repro_torch.models import embedding as E
 
 pytestmark = pytest.mark.cuda
 
@@ -229,7 +236,7 @@ def test_recsys_step_on_cuda_matches_cpu(cuda, name, shape_name):
         gpu_model, *to_device(args, cuda))
     torch.cuda.synchronize()
     if name == "xdeepfm" and shape_name == "serve_p99":
-        assert EB.LAUNCHES == eb + cfg.n_multi_hot
+        assert EB.LAUNCHES == eb + 1  # every multi-hot field in one launch
     if shape_name == "retrieval_cand":
         assert TK.LAUNCHES == tk + 1
     want = arch.make_step(cfg, shape, device="cpu").step_fn(
@@ -242,3 +249,212 @@ def test_recsys_step_on_cuda_matches_cpu(cuda, name, shape_name):
     assert got[1].keys() == want[1].keys()
     for k, v in want[1].items():
         assert float(got[1][k]) == pytest.approx(float(v), abs=TOL), k
+
+
+# -- the redesigned top-k: filtered, rows split across blocks ------------------
+
+
+def _topk_scores(kind, q, d, rng):
+    if kind == "ties":
+        s = rng.integers(0, 5, (q, d)).astype(np.float32)
+        s[rng.random((q, d)) < 0.1] = -0.0
+        s[rng.random((q, d)) < 0.1] = -np.inf
+        return s
+    if kind == "ascending":  # every score passes the filter
+        return np.tile(np.arange(d, dtype=np.float32), (q, 1))
+    if kind == "equal":
+        return np.full((q, d), 0.5, np.float32)
+    return rng.standard_normal((q, d)).astype(np.float32)
+
+
+def _on_card(scores, cuda, misaligned):
+    """``scores`` on the card, its rows starting 4 bytes past a 16-byte
+    boundary when ``misaligned`` (a contiguous view at offset 1)."""
+    if not misaligned:
+        return torch.from_numpy(scores).to(cuda)
+    buf = torch.empty(scores.size + 1, dtype=torch.float32, device=cuda)
+    view = buf[1:].view(scores.shape)
+    view.copy_(torch.from_numpy(scores))
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    return view
+
+
+def _assert_topk_exact(v, i, s, k):
+    pv, pi = TK.topk_plain(s, k)
+    torch.cuda.synchronize()
+    d = s.shape[1]
+    kk = min(k, d)
+    assert torch.equal(i[:, :kk], pi[:, :kk])
+    assert torch.equal(v[:, :kk], pv[:, :kk])
+    assert bool((v[:, kk:] == -np.inf).all()) and bool((i[:, kk:] >= d).all())
+
+
+@pytest.mark.parametrize("q,d,k,kind,misaligned", [
+    (1, 1_000_000, 1000, "normal", False),
+    (3, 1_000_000, 1000, "ties", True),
+    (1, 999_999, 1000, "ascending", True),
+    (3, 300_001, 1000, "equal", False),
+    (1, 65_537, 100, "normal", True),
+    (3, 200_000, 4000, "ties", False),
+])
+def test_topk_split_path_matches_plain(cuda, q, d, k, kind, misaligned):
+    s = _on_card(_topk_scores(kind, q, d, np.random.default_rng(d + k)),
+                 cuda, misaligned)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert TK.splits(q, d, k, n_sm) > 1  # the two-pass launch
+    before, kernels = TK.LAUNCHES, TK.KERNEL_LAUNCHES
+    v, i = TK.topk(s, k)
+    assert TK.LAUNCHES == before + 1  # one wrapper call, two kernels
+    assert TK.KERNEL_LAUNCHES == kernels + 2
+    _assert_topk_exact(v, i, s, k)
+
+
+@pytest.mark.parametrize("q,d,k,n_splits", [
+    (2, 4099, 1000, 5),    # chunks shorter than k, S does not divide D
+    (2, 50, 200, 3),       # k > D: padded rows
+    (3, 9001, 128, 200),   # many chunks
+    (2, 7, 3, 7),          # one column a chunk
+    (2, 10_000, 1000, 1),  # one pass
+])
+def test_topk_forced_splits_match_plain(cuda, q, d, k, n_splits,
+                                        monkeypatch):
+    monkeypatch.setattr(TK, "splits", lambda *_: n_splits)
+    for kind in ("ties", "ascending", "equal"):
+        s = _on_card(_topk_scores(kind, q, d, np.random.default_rng(d)),
+                     cuda, misaligned=(d % 2 == 1))
+        v, i = TK.topk(s, k)
+        _assert_topk_exact(v, i, s, k)
+
+
+# -- EmbeddingBag's fixed-length entry and the all-fields lookup ---------------
+
+
+@pytest.mark.parametrize("n,m,e,fields,weights", [
+    (5000, 8, 10, 3, "mask"), (300, 1, 1, 1, "mask"),
+    (257, 3, 33, 2, "none"), (0, 8, 10, 3, "mask"), (64, 8, 33, 1, "mask"),
+    (100, 5, 10, 4, "mask"), (40, 16, 10, 1, "none"), (10, 0, 10, 1, "none"),
+])
+def test_embedding_bag_fixed_kernel_matches_cpu_plain(cuda, n, m, e, fields,
+                                                      weights):
+    rng = np.random.default_rng(n + m + e)
+    field_rows = 97
+    table = rng.standard_normal((fields * field_rows, e)).astype(np.float32)
+    table[5, 0] = np.inf  # times a zero weight: NaN on both sides
+    ids = rng.integers(0, field_rows, (n, m)).astype(np.int32)
+    w = rng.random((n, m)) < 0.5 if weights == "mask" else None
+    if w is not None and w.size:
+        w.reshape(-1)[::3] = False
+    cpu = [None if x is None else torch.from_numpy(x)
+           for x in (table, ids, w)]
+    dev = [None if x is None else x.to(cuda) for x in cpu]
+    before = EB.LAUNCHES
+    got = EB.embedding_bag_fixed(*dev, fields=fields, field_rows=field_rows)
+    assert EB.LAUNCHES == before + (1 if n else 0)
+    want = EB.embedding_bag_fixed_plain(*cpu, fields, field_rows)
+    on_card = EB.embedding_bag_fixed_plain(*dev, fields, field_rows)
+    torch.cuda.synchronize()
+    for other in (want, on_card.cpu()):  # the sums run in one order
+        nan = torch.isnan(other)
+        assert torch.equal(torch.isnan(got.cpu()), nan)
+        assert bool((got.cpu()[~nan] == other[~nan]).all())
+
+
+@pytest.mark.parametrize("n,m,e", [(300, 1, 1), (100, 5, 10), (40, 16, 10)])
+def test_embedding_bag_kernel_float_weights_match_cpu_plain(cuda, n, m, e):
+    """Float weights on bags of m lookups go through the general entry; zero
+    weights times a non-finite row give NaN there as in the plain version."""
+    rng = np.random.default_rng(n + m + e)
+    table = rng.standard_normal((97, e)).astype(np.float32)
+    table[5, 0] = np.inf
+    idx = rng.integers(0, 97, n * m).astype(np.int32)
+    seg = np.repeat(np.arange(n, dtype=np.int32), m)
+    w = rng.random(n * m).astype(np.float32)
+    w[::3] = 0
+    cpu = [torch.from_numpy(x) for x in (table, idx, seg, w)]
+    dev = [t.to(cuda) for t in cpu]
+    got = EB.embedding_bag(*dev[:3], n, dev[3]).cpu()
+    want = EB.embedding_bag_plain(*cpu[:3], n, cpu[3])
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert bool((got[~nan] == want[~nan]).all())
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+def test_multi_hot_lookup_all_on_cuda_matches_cpu(cuda, combiner):
+    cfg = E.TableConfig(n_fields=5, vocab_per_field=1000, dim=10)
+    rng = np.random.default_rng(3)
+    table = torch.from_numpy(rng.standard_normal(
+        (cfg.total_rows, cfg.dim)).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(0, 1000, (512, 3, 8)).astype(
+        np.int32))
+    mask = torch.from_numpy(rng.random((512, 3, 8)) < 0.7)
+    before = EB.LAUNCHES
+    got = E.multi_hot_lookup_all(table.to(cuda), ids.to(cuda),
+                                 mask.to(cuda), cfg, combiner)
+    assert EB.LAUNCHES == before + 1
+    want = E.multi_hot_lookup_all(table, ids, mask, cfg, combiner)
+    for f in range(3):
+        assert bool((want[:, f] == E.multi_hot_lookup(
+            table, ids[:, f], mask[:, f], cfg, f, combiner)).all())
+    assert bool((got.cpu() == want).all())
+
+
+def test_hot_path_wrappers_do_not_synchronize(cuda):
+    rng = np.random.default_rng(0)
+    one_row = torch.from_numpy(rng.standard_normal((1, 200_000)).astype(
+        np.float32)).to(cuda)
+    rows = torch.from_numpy(rng.standard_normal((600, 5000)).astype(
+        np.float32)).to(cuda)
+    cfg = E.TableConfig(n_fields=4, vocab_per_field=100, dim=10)
+    table = torch.randn(cfg.total_rows, cfg.dim, device=cuda)
+    ids = torch.randint(0, 100, (64, 3, 8), dtype=torch.int32, device=cuda)
+    mask = torch.rand(64, 3, 8, device=cuda) < 0.5
+    TK.topk(one_row, 100)  # builds and loads the kernels first
+    E.multi_hot_lookup_all(table, ids, mask, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        TK.topk(one_row, 100)  # split: two launches and scratch
+        TK.topk(rows, 100)     # one pass
+        E.multi_hot_lookup_all(table, ids, mask, cfg)
+        EB.embedding_bag_fixed(table, ids.reshape(-1, 8))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_embedding_bag_fixed_out_of_range_traps_on_the_device(cuda):
+    code = (
+        "import torch\n"
+        "from repro_torch.kernels import embedding_bag as EB\n"
+        "t = torch.zeros((10, 4), device='cuda')\n"
+        "ids = torch.tensor([[1, 2], [3, 10]], dtype=torch.int32, "
+        "device='cuda')\n"
+        "EB.embedding_bag_fixed(t, ids)\n"
+        "torch.cuda.synchronize()\n"
+        "print('NO TRAP')\n")
+    env = dict(os.environ)
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode != 0, res.stdout
+    assert "NO TRAP" not in res.stdout
+
+
+def test_embedding_bag_fixed_rejects_what_the_kernel_does_not_take(cuda):
+    table = torch.zeros((10, 4), device=cuda)
+    ids = torch.tensor([[1, 2]], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        EB.embedding_bag_fixed(table, ids.long())
+    with pytest.raises(ValueError):
+        EB.embedding_bag_fixed(table.t(), ids)  # not contiguous
+    with pytest.raises(ValueError):
+        EB.embedding_bag_fixed(table, ids, torch.ones((1, 2), device=cuda,
+                                                      dtype=torch.int32))
+    with pytest.raises(ValueError):  # float weights: the general entry
+        EB.embedding_bag_fixed(table, ids, torch.ones((1, 2), device=cuda))
+    with pytest.raises(ValueError):
+        EB.embedding_bag_fixed(table, ids.cpu())
+    with pytest.raises(ValueError):
+        EB.embedding_bag_fixed(table.double(), ids)

@@ -196,3 +196,92 @@ def test_nonparam_layernorm_matches_jax():
     want = np.asarray(JL.nonparam_layernorm(jnp.asarray(x)))
     got = L.nonparam_layernorm(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, want, atol=1e-6, rtol=1e-6)
+
+
+# -- fixed-length bags: every multi-hot field in one call ----------------------
+
+
+def _mh_inputs(b, f, m, seed):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, CFG.vocab_per_field, (b, f, m)).astype(np.int32)
+    mask = rng.random((b, f, m)) < 0.6
+    mask[1, 0] = False  # an empty bag
+    return ids, mask
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+def test_multi_hot_lookup_all_matches_jax_field_by_field(table, combiner):
+    ids, mask = _mh_inputs(4, 3, 5, seed=31)
+    got = E.multi_hot_lookup_all(torch.from_numpy(table),
+                                 torch.from_numpy(ids),
+                                 torch.from_numpy(mask), CFG,
+                                 combiner=combiner).numpy()
+    assert got.shape == (4, 3, CFG.dim)
+    for f in range(3):
+        want = np.asarray(JE.multi_hot_lookup(
+            jnp.asarray(table), jnp.asarray(ids[:, f]),
+            jnp.asarray(mask[:, f]), JCFG, f, combiner=combiner))
+        assert (got[:, f] == want).all(), f
+        if combiner == "sum":  # the Pallas kernel on the same bags
+            rows = (ids[:, f] + f * CFG.vocab_per_field).reshape(-1)
+            segs = np.repeat(np.arange(4, dtype=np.int32), 5)
+            w = mask[:, f].reshape(-1).astype(np.float32)
+            assert (got[:, f] == _pallas(table, rows, segs, 4, w)).all(), f
+    assert (got[1, 0] == 0).all()
+
+
+@pytest.mark.parametrize("n,m,e,fields,weights", [
+    (7, 8, 10, 3, "mask"), (5, 1, 1, 1, "mask"), (6, 3, 33, 2, "none"),
+    (0, 8, 10, 3, "mask"), (4, 0, 10, 1, "mask"), (9, 5, 10, 1, "none"),
+])
+def test_embedding_bag_fixed_plain_matches_the_general_plain_version(
+        n, m, e, fields, weights):
+    rng = np.random.default_rng(n * 100 + m * 10 + e)
+    field_rows = 11
+    table = torch.from_numpy(
+        rng.standard_normal((fields * field_rows, e)).astype(np.float32))
+    table[0] = -table[0].abs()
+    table[3, 0] = np.inf  # times a zero weight: NaN, as in the reference
+    ids = torch.from_numpy(
+        rng.integers(0, field_rows, (n, m)).astype(np.int32))
+    w = (torch.from_numpy(rng.random((n, m)) < 0.5) if weights == "mask"
+         else None)
+    if w is not None and w.numel():
+        w.view(-1)[::3] = False
+    got = EB.embedding_bag_fixed(table, ids, w, fields, field_rows)
+    assert got.shape == (n, e)
+    rows = ids.long() + (torch.arange(n) % fields * field_rows)[:, None]
+    segs = torch.arange(n)[:, None].expand(n, m).reshape(-1)
+    want = EB.embedding_bag_plain(
+        table, rows.reshape(-1), segs, n,
+        None if w is None else w.reshape(-1).to(torch.float32))
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert bool((got[~nan] == want[~nan]).all())
+    oracle = ref.embedding_bag_fixed_ref(table, ids, w, fields, field_rows)
+    assert torch.allclose(got[~nan], oracle[~nan], atol=1e-6, rtol=1e-6)
+
+
+def test_embedding_bag_fixed_cpu_checks_and_launches_nothing():
+    table = torch.zeros((10, 4))
+    ids = torch.tensor([[1, 2], [3, 9]], dtype=torch.int32)
+    before = EB.LAUNCHES
+    ops.embedding_bag_fixed(table, ids)
+    assert EB.LAUNCHES == before
+    with pytest.raises(ValueError):
+        EB.embedding_bag_fixed(table, ids + 1)  # row 10 out of range
+    with pytest.raises(ValueError):
+        EB.embedding_bag_fixed(table, ids - 2)  # negative row
+    with pytest.raises(ValueError):
+        EB.embedding_bag_fixed(table, ids, fields=2, field_rows=5)
+    with pytest.raises(ValueError):
+        EB.embedding_bag_fixed(table, ids.reshape(-1))
+    with pytest.raises(ValueError):
+        EB.embedding_bag_fixed(table, ids, torch.ones(2, 3, dtype=torch.bool))
+    with pytest.raises(ValueError):  # float weights: the general entry
+        EB.embedding_bag_fixed(table, ids, torch.ones(2, 2))
+    with pytest.raises(ValueError):
+        EB.embedding_bag_fixed(table, ids.float())
+    with pytest.raises(ValueError):
+        E.multi_hot_lookup_all(table, ids[None], ids[None] > 0,
+                               E.TableConfig(2, 5, 4), combiner="max")

@@ -2,10 +2,11 @@
 
 ``csrc/fused_measures.cuh`` and ``csrc/bitonic.cuh`` hold the math the
 kernels run (the per-rank scan step, the cutoff slots, the 64 output
-columns; the bitonic compare-exchange and merge).  ``csrc/host_check.cpp``
-runs those same functions rank by rank and stage by stage on the CPU; this
-test builds it (no torch headers, about a second) and holds it against the
-plain PyTorch versions on small rows.  It is the only check of the kernels'
+columns; the top-k's key order, admission test, radix select and bitonic
+sort).  ``csrc/host_check.cpp`` runs those same functions rank by rank and
+key by key on the CPU, with the top-k kernel's split-and-merge (mode
+``topk_split Q D K S STAGE``); this test builds it (no torch headers, about
+a second) and holds it against the plain PyTorch versions on small rows.  It is the only check of the kernels'
 arithmetic that needs no GPU; the kernels themselves are held against the
 plain versions on the card by ``chip_smoke.py``.
 """
@@ -94,3 +95,54 @@ def test_topk_row_math_matches_plain(host_check, q, d, k):
     np.testing.assert_array_equal(vals[:, :kk], pv.numpy()[:, :kk])
     # short rows: -inf with out-of-range indices, as the Pallas kernel pads
     assert (vals[:, kk:] == -np.inf).all() and (idx[:, kk:] >= d).all()
+
+
+def _topk_scores(kind, q, d, rng):
+    if kind == "ties":  # few values, signed zeros and -inf
+        s = rng.integers(0, 5, (q, d)).astype(np.float32)
+        s[rng.random((q, d)) < 0.1] = -0.0
+        s[rng.random((q, d)) < 0.1] = -np.inf
+        s[0] = rng.standard_normal(d)
+        return s
+    if kind == "ascending":  # every score precedes the running k-th
+        return np.tile(np.arange(d, dtype=np.float32), (q, 1))
+    if kind == "descending":  # nothing passes after the first k
+        return np.tile(np.arange(d, 0, -1).astype(np.float32), (q, 1))
+    if kind == "equal":  # all ties: the lowest k columns win
+        return np.full((q, d), 2.5, np.float32)
+    return rng.standard_normal((q, d)).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind,q,d,k,splits,stage", [
+    ("ties", 3, 4099, 1000, 5, 4096),     # D % 4 != 0, chunks shorter than k
+    ("ascending", 2, 9001, 1000, 3, 4096),
+    ("descending", 2, 9000, 1000, 2, 4096),
+    ("equal", 2, 5000, 300, 4, 512),
+    ("ties", 2, 50, 200, 3, 256),          # k > D: padded rows
+    ("normal", 2, 3001, 128, 7, 16),       # a select every 8 columns
+    ("normal", 3, 10007, 1000, 1, 4096),   # the one-pass launch
+    ("ties", 2, 700, 10, 9, 128),          # S does not divide D
+])
+def test_topk_split_matches_plain(host_check, kind, q, d, k, splits, stage):
+    """The filtered per-block top-k (radix selects over the staged keys,
+    one final sort) and the split-and-merge of topk.cu, run through
+    bitonic.cuh on the host, against topk_plain bit for bit."""
+    scores = _topk_scores(kind, q, d, np.random.default_rng(d + k + splits))
+    out = subprocess.run(
+        [host_check, "topk_split", str(q), str(d), str(k), str(splits),
+         str(stage)], input=scores.tobytes(), capture_output=True,
+        check=True).stdout
+    vals = np.frombuffer(out[:q * k * 4], np.float32).reshape(q, k)
+    idx = np.frombuffer(out[q * k * 4:], np.int32).reshape(q, k)
+    pv, pi = TK.topk_plain(torch.from_numpy(scores), k)
+    kk = min(k, d)
+    np.testing.assert_array_equal(idx[:, :kk], pi.numpy()[:, :kk])
+    np.testing.assert_array_equal(vals[:, :kk], pv.numpy()[:, :kk])
+    assert (vals[:, kk:] == -np.inf).all() and (idx[:, kk:] >= d).all()
+
+
+def test_topk_split_rejects_a_stage_below_two(host_check):
+    scores = np.zeros((1, 10), np.float32)
+    res = subprocess.run([host_check, "topk_split", "1", "10", "200", "1",
+                          "1"], input=scores.tobytes(), capture_output=True)
+    assert res.returncode == 2 and b"STAGE" in res.stderr
