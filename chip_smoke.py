@@ -19,7 +19,10 @@ points a user calls:
 * C. Deep candidates (1,024 queries x 65,536 docs, integer tokens through
   ``buffer_from_tokens``) with depth-bounded measures, so the evaluator
   routes through the top-k kernel; held against the full-sort route on the
-  same buffer.
+  same buffer.  The same buffer then goes through
+  ``ShardedEvaluator.evaluate_buffer`` (the fused kernel at
+  ``[1,024, 65,536]``, its long-row regime), held against the full-sort
+  results the same way.
 * E. Recsys serving at full width (xDeepFM, SASRec, AutoInt, MIND from
   ``make_config(False)``, weights from a seeded ``torch.Generator`` on the
   card), through ``get_arch(name).make_step(cfg, shape)``: 20 timed
@@ -36,11 +39,13 @@ points a user calls:
   inputs, with median times, the plain version's time, one PyTorch call's
   time where one computes the same function (``torch.topk``,
   ``F.embedding_bag``; timed only, the port never calls them), the bound,
-  the launch counts from B, C and E and, for B2 and B3, the kernels that
-  one wrapper call launched (as their C entry points count them): B1 at
-  phase B's batch, B2 at ``[1,024, 65,536]`` (phase C) and ``[1, 10^6]``
-  (phase E), B3's all-fields call at the ``serve_bulk`` batch (phase E),
-  with its general sort-and-CSR wrapper at one field's bags beside it.
+  the launch counts from B, C and E and the kernels that one wrapper call
+  launched (as their C entry points count them): B1 at phase B's batch
+  and at phase C's (``[1,024, 65,536]``, two launches a call: the
+  rank-term table, then the rows), B2 at ``[1,024, 65,536]`` (phase C)
+  and ``[1, 10^6]`` (phase E), B3's all-fields call at the ``serve_bulk``
+  batch (phase E), with its general sort-and-CSR wrapper at one field's
+  bags beside it.
 
 Every phase prints one JSON line; any failure raises and exits non-zero.
 The last lines are the card's ``nvidia-smi`` name and power limit and
@@ -326,6 +331,7 @@ def phase_deep(device, rng, nq=DEEP_Q, nd=DEEP_D, nj=DEEP_J):
 
     from repro_torch.core import (RelevanceEvaluator, compute_measures,
                                   compute_measures_topk)
+    from repro_torch.distributed import ShardedEvaluator
 
     t0 = time.perf_counter()
     qrel, qids, names = deep_data(rng, nq, nd, nj)
@@ -339,9 +345,9 @@ def phase_deep(device, rng, nq=DEEP_Q, nd=DEEP_D, nj=DEEP_J):
              "buffer_from_tokens_s": time.perf_counter() - t1}
 
     zero_launches()
-    t0 = time.perf_counter()
+    t0_topk = time.perf_counter()
     routed = ev.evaluate_buffer(buf)
-    t1 = time.perf_counter()
+    t1_topk = time.perf_counter()
     launches = read_launches()
     check(launches["topk"] >= 1, "main path did not launch the top-k kernel")
 
@@ -354,13 +360,28 @@ def phase_deep(device, rng, nq=DEEP_Q, nd=DEEP_D, nj=DEEP_J):
             for i, qid in enumerate(buf.qids)}
     del batch, per_query
     n, worst = compare_results(routed, full)
+
+    # the same buffer through the fused route (B1 at [nq, nd])
+    sev = ShardedEvaluator(ev)
+    zero_launches()
+    t0 = time.perf_counter()
+    fused = sev.evaluate_buffer(buf).per_query
+    t1 = time.perf_counter()
+    fused_launches = read_launches()
+    check(fused_launches["fused_measures"] >= 1,
+          "fused route did not launch the fused-measure kernel")
+    n_fused, worst_fused = compare_results(fused, full)
     split = {"topk": split_times(
         ev, buf, lambda b: _stacked(compute_measures_topk(
-            b, ev.measures, ev.relevance_level)), topk_layout=True)}
+            b, ev.measures, ev.relevance_level)), topk_layout=True),
+        "fused": split_times(ev, buf, lambda b: sev._dispatch(b)[0])}
     return {"phase": "C", "queries": nq, "docs": nd, "judged": nj,
             "topk_depth": ev._topk_depth, "setup": setup,
-            "topk_eval_s": t1 - t0, "split": split, "compared": n,
-            "max_abs_diff": worst, "launches": launches}, (ev, buf)
+            "topk_eval_s": t1_topk - t0_topk, "fused_eval_s": t1 - t0,
+            "split": split, "compared": n, "max_abs_diff": worst,
+            "fused_compared": n_fused, "fused_max_abs_diff": worst_fused,
+            "launches": launches, "fused_launches": fused_launches
+            }, (ev, buf)
 
 
 #: recsys serving (phase E): the four archs at full width
@@ -700,48 +721,10 @@ def phase_kernels(paper, deep, recsys, launches):
     """Each kernel against its plain version on the main path's inputs."""
     import torch
 
-    from repro_torch.core import measures as M
-    from repro_torch.kernels import fused_measures as FM
-    from repro_torch.kernels import ops
-
-    rows = []
-    # B1: the fused-measure pass at phase B's padded batch
-    ev, buf = paper
-    batch = ev.batch_from_buffer(buf)
-    s = M.sort_batch(batch, ev.relevance_level)
-    scal = ops.make_scalars(batch.n_rel, batch.n_judged_nonrel,
-                            batch.ideal_rel)
-    rel, judged = s.rel.contiguous(), s.judged.contiguous()
-    q, d = rel.shape
-    got = FM.fused_measures(rel, judged, scal, ev.relevance_level)
-    want = FM.fused_measures_plain(rel, judged, scal, ev.relevance_level)
-    torch.cuda.synchronize()
-    ncol = len(FM.COLUMNS)
-    for c, name in enumerate(FM.COLUMNS):
-        a, b = got[:, c], want[:, c]
-        if is_exact(name):
-            check(torch.equal(a, b), f"fused kernel column {name} not exact")
-        else:
-            check(torch.allclose(a, b, atol=TOL, rtol=TOL),
-                  f"fused kernel column {name} beyond {TOL}")
-    err = float((got[:, :ncol] - want[:, :ncol]).abs().max())
-    check(bool(torch.all(got[:, ncol:] == 0)), "fused padding not zero")
-    nbytes = (2 * q * d + q * FM.SCALAR_WIDTH + q * FM.OUT_WIDTH) * 4
-    flops = FUSED_FLOPS_PER_RANK * q * d
-    ms = time_ms(lambda: FM.fused_measures(rel, judged, scal))
-    plain_ms = time_ms(lambda: FM.fused_measures_plain(rel, judged, scal))
-    rows.append(dict(
-        name="fused_measures", route="cuda",
-        source="src/repro_torch/csrc/fused_measures.cu",
-        replaces="src/repro/kernels/fused_measures.py:81",
-        launches=launches["fused_measures"], max_abs_err=err, ms=ms,
-        plain_ms=plain_ms, shape=[q, d],
-        bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S)
-        * 1e3,
-        bound_by="bytes" if nbytes / HBM_BYTES_PER_S
-        >= flops / FP32_FLOPS_PER_S else "operations",
-        library_ms=None))
-    del batch, s, scal, rel, judged, got, want
+    # B1 at phase B's batch (a warp per row, one launch a call) and phase
+    # C's (a block per row after the rank-term table: two launches)
+    rows = [fused_row(*paper, launches["fused_measures"], per_call=1),
+            fused_row(*deep, launches["fused_measures_deep"], per_call=2)]
 
     # B2: top-k at phase C's masked score matrix
     ev, buf = deep
@@ -762,6 +745,64 @@ def phase_kernels(paper, deep, recsys, launches):
         recsys["xdeepfm"])
     rows.append(row)
     return rows
+
+
+def fused_row(ev, buf, launches, per_call):
+    """B1 at the rank-sorted batch of ``buf`` (the evaluator's padded
+    ``[Q, D]``) against its plain version: count columns exact, the rest
+    within TOL, padding columns zero; times, the bound and the kernels one
+    call launched, as the C entry counts them (``per_call`` expected)."""
+    import torch
+
+    from repro_torch.core import measures as M
+    from repro_torch.kernels import fused_measures as FM
+    from repro_torch.kernels import ops
+
+    batch = ev.batch_from_buffer(buf)
+    s = M.sort_batch(batch, ev.relevance_level)
+    scal = ops.make_scalars(batch.n_rel, batch.n_judged_nonrel,
+                            batch.ideal_rel)
+    rel, judged = s.rel.contiguous(), s.judged.contiguous()
+    del batch, s
+    q, d = rel.shape
+    level = ev.relevance_level
+    got = FM.fused_measures(rel, judged, scal, level)
+    want = FM.fused_measures_plain(rel, judged, scal, level)
+    torch.cuda.synchronize()
+    ncol = len(FM.COLUMNS)
+    for c, name in enumerate(FM.COLUMNS):
+        a, b = got[:, c], want[:, c]
+        if is_exact(name):
+            check(torch.equal(a, b),
+                  f"fused kernel at {[q, d]}: column {name} not exact")
+        else:
+            check(torch.allclose(a, b, atol=TOL, rtol=TOL),
+                  f"fused kernel at {[q, d]}: column {name} beyond {TOL}")
+    err = float((got[:, :ncol] - want[:, :ncol]).abs().max())
+    check(bool(torch.all(got[:, ncol:] == 0)), "fused padding not zero")
+    del got, want
+    before = FM.KERNEL_LAUNCHES
+    FM.fused_measures(rel, judged, scal, level)
+    counted = FM.KERNEL_LAUNCHES - before
+    check(counted == per_call, f"fused kernel at {[q, d]} launched "
+          f"{counted} kernels a call, want {per_call}")
+    nbytes = (2 * q * d + q * FM.SCALAR_WIDTH + q * FM.OUT_WIDTH) * 4
+    flops = FUSED_FLOPS_PER_RANK * q * d
+    return dict(
+        name="fused_measures", route="cuda",
+        source="src/repro_torch/csrc/fused_measures.cu",
+        replaces="src/repro/kernels/fused_measures.py:81",
+        launches=launches, kernel_launches_per_call=counted,
+        max_abs_err=err,
+        ms=time_ms(lambda: FM.fused_measures(rel, judged, scal, level)),
+        plain_ms=time_ms(lambda: FM.fused_measures_plain(rel, judged, scal,
+                                                         level), iters=10),
+        shape=[q, d],
+        bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S)
+        * 1e3,
+        bound_by="bytes" if nbytes / HBM_BYTES_PER_S
+        >= flops / FP32_FLOPS_PER_S else "operations",
+        library_ms=None)
 
 
 def topk_row(scores, k, launches, split):
@@ -974,6 +1015,8 @@ def main(argv=None) -> int:
     out_c, deep = timed(phase_deep, "cuda", rng)
     out_e, recsys = timed(phase_recsys, "cuda", args.seed)
     launches = {"fused_measures": out_b["launches"]["fused_measures"],
+                "fused_measures_deep":
+                    out_c["fused_launches"]["fused_measures"],
                 "topk": out_c["launches"]["topk"],
                 "topk_retrieval": out_e["launches"]["topk"],
                 "embedding_bag": out_e["launches"]["embedding_bag"]}

@@ -1,13 +1,20 @@
 // Per-rank arithmetic of the fused measure pass, shared by the CUDA kernel
 // (fused_measures.cu) and the host check (host_check.cpp, built with g++).
 //
-// A row is walked in rank order.  `Prefix` carries the inclusive prefix
-// sums of the rank axis; `step` advances it by one rank, adds that rank's
-// share of the row reductions to `Acc`, and records the prefix at the
-// cutoff ranks into `Cut` slots; `finalize` turns slots, sums and the
-// per-query scalars into the 64 output columns.  The kernel computes each
-// thread's starting prefix with a block scan and then calls `step` for its
-// own ranks; the host check calls it for every rank in turn.
+// A row is cut into chunks of kChunk ranks; a warp takes a chunk at a
+// time, kLaneRanks consecutive ranks a lane.  `rank_inputs` gives each
+// rank its binary relevance and judged counts.  The lane's totals of those
+// three are scanned across the warp (and the block's warps, for long
+// rows); then `walk_lane` moves the prefix `Prefix` rank by rank through
+// the lane's ranks, adds the DCG gain of each rank with a grade (from the
+// rank-term table: `dcg_divisor`, `rbp_term`, what depends on the rank
+// alone, built once per rank position) and each relevant rank's share of
+// the row reductions to `Acc` (`walk_rank`; `lane_zeros` counts the ranks
+// before the first relevant one), and copies the prefix into the cutoff
+// slots whose rank the lane holds (`lane_slots`).  The DCG and AP
+// prefixes are walked from 0 within the lane and offset once their own
+// scans are known.  `column` turns the slots, sums and per-query scalars
+// into one of the 64 output columns.
 //
 // Rounding follows the JAX package bit for bit on the count columns (P,
 // recall, success, judged, num_rel_ret): a division by a per-query value is
@@ -19,9 +26,11 @@
 
 #ifdef __CUDACC__
 #define FM_HD __host__ __device__ __forceinline__
+#define FM_UNROLL _Pragma("unroll")
 #else
 #include <math.h>
 #define FM_HD inline
+#define FM_UNROLL
 #endif
 
 namespace fm {
@@ -32,8 +41,13 @@ constexpr int kNumCutoffs = 9;    // 5 10 15 20 30 100 200 500 1000
 constexpr int kNumSuccess = 3;    // 1 5 10
 constexpr int kNumSlots = 11;     // ranks 1 5 10 15 20 30 100 200 500 1000, D
 
+constexpr int kLaneRanks = 8;                // ranks of a lane in a chunk
+constexpr int kChunk = 32 * kLaneRanks;      // ranks of a warp's chunk
+constexpr int kShortMaxD = 2048;             // longest row a warp takes alone
+constexpr int kSlotChunks = 999 / kChunk + 1;  // chunks holding ranks <= 1000
+
 // 1-based rank recorded in slot c (the last slot is the row's end).
-FM_HD int slot_rank(int c, int d) {
+FM_HD constexpr int slot_rank(int c, int d) {
   int k = d;
   switch (c) {
     case 0: k = 1; break;
@@ -53,14 +67,35 @@ FM_HD int slot_rank(int c, int d) {
 
 // Standard cutoff j (0..8) lives in slot j + 1; success cutoff s (0..2)
 // (ranks 1, 5, 10) in slot s.
-FM_HD int cutoff(int j) { return slot_rank(j + 1, 1 << 30); }
+FM_HD constexpr int cutoff(int j) { return slot_rank(j + 1, 1 << 30); }
+
+// 0-based position of slot c's rank in a row longer than every cutoff.
+FM_HD constexpr int slot_pos(int c) { return slot_rank(c, 1 << 30) - 1; }
+
+// Slot c holds the row's totals when its rank is D or beyond (always for
+// the last slot); the others are copied from the prefix at their rank.
+FM_HD bool slot_is_total(int c, int d) { return slot_pos(c) + 1 >= d; }
+
+// The constant slots (bits c < 10) whose rank lies in `lane`'s ranks of
+// chunk `chunk` of a row of d.
+FM_HD unsigned lane_slots(int chunk, int lane, int d) {
+  unsigned m = 0;
+  for (int c = 0; c < kNumSlots - 1; ++c) {
+    const int pos = slot_pos(c);
+    if (!slot_is_total(c, d) && pos / kChunk == chunk &&
+        pos % kChunk / kLaneRanks == lane) {
+      m |= 1u << c;
+    }
+  }
+  return m;
+}
 
 struct Prefix {
   float cum;  // relevant (binary) count
   float jn;   // judged non-relevant count
   float cj;   // judged count
-  float dcg;  // DCG, linear gain
-  float ap;   // sum of precision at each relevant rank
+  float dcg;  // DCG, linear gain (within the lane, in walk_lane)
+  float ap;   // sum of precision at each relevant rank (likewise)
 };
 
 struct Acc {
@@ -74,6 +109,14 @@ struct Cut {
   float cum, ap, dcg, cj;
 };
 
+// What one rank adds to the three scanned prefixes, and its grade.
+struct Rank {
+  float b;    // binary relevance
+  float jn;   // judged and not relevant
+  float cj;   // judged
+  float rel;  // grade (the DCG gain's numerator where > 0)
+};
+
 FM_HD float sdiv(float num, float den) {
   return den > 0.0f ? num / fmaxf(den, 1e-30f) : 0.0f;
 }
@@ -82,54 +125,85 @@ FM_HD float binrel_of(float rel, float level) {
   return rel >= level ? 1.0f : 0.0f;
 }
 
-FM_HD float gain_of(float rel, float rank) {
-  return fmaxf(rel, 0.0f) / log2f(rank + 1.0f);
+// The rank-term table's two entries for 0-based position p.
+FM_HD float dcg_divisor(int p) {
+  return log2f(static_cast<float>(p + 1) + 1.0f);
 }
 
-FM_HD float rbp_weight(float rank) {
+FM_HD float rbp_term(int p) {
   // (1 - p) rounds in double first, as the JAX package's Python float does
-  return static_cast<float>(1.0 - 0.8) * powf(0.8f, rank - 1.0f);
+  return static_cast<float>(1.0 - 0.8) *
+         powf(0.8f, static_cast<float>(p + 1) - 1.0f);
 }
 
-// The four quantities whose prefix sums the kernel scans before `step`.
-FM_HD void scan_inputs(float rel, float judged, float rank, float level,
-                       float out[4]) {
-  const float b = binrel_of(rel, level);
-  out[0] = b;
-  out[1] = judged * (1.0f - b);
-  out[2] = judged;
-  out[3] = gain_of(rel, rank);
+// A rank past D has rel = judged = 0.
+FM_HD Rank rank_inputs(float rel, float judged, float level) {
+  Rank x;
+  x.b = binrel_of(rel, level);
+  x.jn = judged * (1.0f - x.b);
+  x.cj = judged;
+  x.rel = rel;
+  return x;
 }
 
-// Advance `pre` past the rank at 0-based position p.  With acc and cuts
-// null only the prefix moves (the kernel's first walk, which sizes the AP
-// sum before its scan).
-FM_HD void step(float rel, float judged, int p, int d, float level,
-                float n_rel, float n_nonrel, Prefix& pre, Acc* acc,
-                Cut* cuts) {
-  const float rank = static_cast<float>(p + 1);
-  float x[4];
-  scan_inputs(rel, judged, rank, level, x);
-  const float b = x[0];
-  pre.cum += b;
-  pre.jn += x[1];
-  pre.cj += x[2];
-  pre.dcg += x[3];
-  pre.ap += b * (pre.cum / rank);
-  if (acc != nullptr) {
-    const float nr_above = pre.jn - x[1];
-    const float term =
-        nr_above > 0.0f
-            ? 1.0f - sdiv(fminf(nr_above, n_rel), fminf(n_rel, n_nonrel))
-            : 1.0f;
-    acc->bpref += term * b;
-    acc->zeros += pre.cum == 0.0f ? 1.0f : 0.0f;
-    acc->rel_at_r += rank <= n_rel ? b : 0.0f;
-    acc->rbp += b * rbp_weight(rank);
+// Advance `pre` past one rank and add the rank's share of the reductions
+// but `zeros` (walk_lane counts those); `divisor` and `rbp_w` are its
+// table entries.  The gain fmaxf(rel, 0) / divisor is zero where rel <= 0,
+// and a rank that is not relevant adds zero to AP, bpref, R-precision and
+// RBP, so their divisions are skipped there; a relevant rank has rel >=
+// level > 0, and b = 1, so each product by b is the term itself.
+FM_HD void walk_rank(const Rank& x, float rank, float divisor, float rbp_w,
+                     float n_rel, float bpref_den, Prefix& pre, Acc& acc) {
+  pre.cum += x.b;
+  pre.jn += x.jn;
+  pre.cj += x.cj;
+  if (x.rel > 0.0f) {
+    pre.dcg += x.rel / divisor;
+    if (x.b != 0.0f) {
+      pre.ap += pre.cum / rank;
+      const float nr_above = pre.jn - x.jn;
+      const float frac = sdiv(fminf(nr_above, n_rel), bpref_den);
+      acc.bpref += nr_above > 0.0f ? 1.0f - frac : 1.0f;
+      acc.rel_at_r += rank <= n_rel ? 1.0f : 0.0f;
+      acc.rbp += rbp_w;
+    }
   }
-  if (cuts != nullptr) {
-    for (int c = 0; c < kNumSlots; ++c) {
-      if (p + 1 == slot_rank(c, d)) {
+}
+
+// The ranks with no relevant one at or above them in the row (`zeros`):
+// a lane's ranks before its first relevant one and before d, when no
+// relevant rank precedes the lane (`start_cum` is the cum before it).
+FM_HD void lane_zeros(const Rank* x, int p0, int d, float start_cum,
+                      Acc& acc) {
+  if (start_cum == 0.0f) {
+    int first = kLaneRanks;
+    FM_UNROLL
+    for (int i = kLaneRanks - 1; i >= 0; --i) {
+      if (x[i].b != 0.0f) first = i;
+    }
+    const int valid = d - p0 < first ? d - p0 : first;
+    acc.zeros += static_cast<float>(valid > 0 ? valid : 0);
+  }
+}
+
+// A lane's kLaneRanks ranks from 0-based position p0 of a row of d, with
+// their table entries: walks each and copies the prefix into cuts[c] at
+// the rank of each slot c in `slots` (its DCG and AP still lane-relative).
+// For a lane with no graded rank (rel > 0) and no slot the walk adds only
+// `zeros` and moves `pre` past values that are not read again, so a warp
+// where every lane is such takes lane_zeros alone, with the same result.
+FM_HD void walk_lane(const Rank* x, const float* divisor, const float* rbp_w,
+                     int p0, int d, float n_rel, float bpref_den,
+                     unsigned slots, Prefix& pre, Acc& acc, Cut* cuts) {
+  const float rank0 = static_cast<float>(p0 + 1);
+  lane_zeros(x, p0, d, pre.cum, acc);
+  FM_UNROLL
+  for (int i = 0; i < kLaneRanks; ++i) {
+    walk_rank(x[i], rank0 + static_cast<float>(i), divisor[i], rbp_w[i],
+              n_rel, bpref_den, pre, acc);
+    FM_UNROLL
+    for (int c = 0; c < kNumSlots - 1; ++c) {
+      if (slot_pos(c) % kLaneRanks == i && ((slots >> c) & 1u)) {
         cuts[c].cum = pre.cum;
         cuts[c].ap = pre.ap;
         cuts[c].dcg = pre.dcg;
@@ -139,32 +213,38 @@ FM_HD void step(float rel, float judged, int p, int d, float level,
   }
 }
 
-// The 64 output columns of one row, in the order of
-// repro_torch.kernels.fused_measures.COLUMNS (zeros after column 55).
-FM_HD void finalize(const Cut* cuts, const Acc& acc, const float* scal,
-                    float* out) {
+// Column c of a row, in the order of
+// repro_torch.kernels.fused_measures.COLUMNS (zero from column 55 on).
+FM_HD float column(int c, const Cut* cuts, const Acc& acc,
+                   const float* scal) {
   const float n_rel = scal[0];
   const Cut& all = cuts[kNumSlots - 1];
-  out[0] = sdiv(all.ap, n_rel);
-  out[1] = all.cum > 0.0f ? 1.0f / (1.0f + acc.zeros) : 0.0f;
-  out[2] = sdiv(all.dcg, scal[2]);
-  out[3] = sdiv(acc.bpref, n_rel);
-  out[4] = all.cum;
-  out[5] = sdiv(acc.rel_at_r, n_rel);
-  for (int j = 0; j < kNumCutoffs; ++j) {
-    const Cut& c = cuts[j + 1];
-    const float inv_k = 1.0f / static_cast<float>(cutoff(j));
-    out[6 + j] = c.cum * inv_k;
-    out[15 + j] = sdiv(c.cum, n_rel);
-    out[24 + j] = sdiv(c.dcg, scal[3 + j]);
-    out[33 + j] = sdiv(c.ap, n_rel);
-    out[45 + j] = c.cj * inv_k;
+  switch (c) {
+    case 0: return sdiv(all.ap, n_rel);
+    case 1: return all.cum > 0.0f ? 1.0f / (1.0f + acc.zeros) : 0.0f;
+    case 2: return sdiv(all.dcg, scal[2]);
+    case 3: return sdiv(acc.bpref, n_rel);
+    case 4: return all.cum;
+    case 5: return sdiv(acc.rel_at_r, n_rel);
+    case 54: return acc.rbp;
+    default: break;
   }
-  for (int s = 0; s < kNumSuccess; ++s) {
-    out[42 + s] = cuts[s].cum > 0.0f ? 1.0f : 0.0f;
+  if (c < 6 + 4 * kNumCutoffs) {
+    const int j = (c - 6) % kNumCutoffs;
+    const Cut& s = cuts[j + 1];
+    switch ((c - 6) / kNumCutoffs) {
+      case 0: return s.cum * (1.0f / static_cast<float>(cutoff(j)));
+      case 1: return sdiv(s.cum, n_rel);
+      case 2: return sdiv(s.dcg, scal[3 + j]);
+      default: return sdiv(s.ap, n_rel);
+    }
   }
-  out[54] = acc.rbp;
-  for (int c = 55; c < kOutWidth; ++c) out[c] = 0.0f;
+  if (c < 42 + kNumSuccess) return cuts[c - 42].cum > 0.0f ? 1.0f : 0.0f;
+  if (c < 45 + kNumCutoffs) {
+    const int j = c - 45;
+    return cuts[j + 1].cj * (1.0f / static_cast<float>(cutoff(j)));
+  }
+  return 0.0f;
 }
 
 }  // namespace fm

@@ -24,16 +24,213 @@
 
 namespace {
 
-void fused_row(const float* rel, const float* judged, const float* scal,
-               float* out, int d, float level) {
-  fm::Prefix pre = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  fm::Acc acc = {0.0f, 0.0f, 0.0f, 0.0f};
-  fm::Cut cuts[fm::kNumSlots] = {};
-  for (int p = 0; p < d; ++p) {
-    fm::step(rel[p], judged[p], p, d, level, scal[0], scal[1], pre, &acc,
-             cuts);
+// fused_measures.cu's rows, lane by lane: each lane's registers are a row
+// of these arrays, each shuffle a loop over them in the order it adds.
+constexpr int kL = fm::kLaneRanks;
+constexpr int kWarps = 4;  // the long-row block's warps
+constexpr int kTile = kWarps * fm::kChunk;
+
+struct Scan {
+  float excl[32];
+  float total;
+};
+
+// Hillis-Steele scan over n lanes (warp_incl / block_scan).
+void scan_lanes(const float* v, int n, Scan& s) {
+  float incl[32];
+  for (int l = 0; l < n; ++l) incl[l] = v[l];
+  for (int off = 1; off < n; off <<= 1) {
+    for (int l = n - 1; l >= off; --l) incl[l] += incl[l - off];
   }
-  fm::finalize(cuts, acc, scal, out);
+  for (int l = 0; l < n; ++l) s.excl[l] = l > 0 ? incl[l - 1] : 0.0f;
+  s.total = incl[n - 1];
+}
+
+// warp_sum: the xor butterfly (every lane ends with lane 0's sum).
+float butterfly(const float* v) {
+  float x[32], y[32];
+  for (int l = 0; l < 32; ++l) x[l] = v[l];
+  for (int off = 16; off > 0; off >>= 1) {
+    for (int l = 0; l < 32; ++l) y[l] = x[l] + x[l ^ off];
+    for (int l = 0; l < 32; ++l) x[l] = y[l];
+  }
+  return x[0];
+}
+
+// One warp's chunk: the lanes' rank inputs, table terms and scanned totals.
+struct Chunk {
+  fm::Rank x[32][kL];
+  float div[32][kL];
+  float w[32][kL];
+  Scan s[3];
+  fm::Prefix pre[32];
+  unsigned slots[32];
+  Scan dcg, ap;
+};
+
+void chunk_inputs(const float* rel, const float* judged, const float* tdiv,
+                  const float* tw, int chunk, int d, float level, Chunk& c) {
+  float t[3][32];
+  for (int l = 0; l < 32; ++l) {
+    const int p0 = chunk * fm::kChunk + l * kL;
+    for (int k = 0; k < 3; ++k) t[k][l] = 0.0f;
+    for (int i = 0; i < kL; ++i) {
+      const int p = p0 + i;
+      const bool in = p < d;
+      c.x[l][i] = fm::rank_inputs(in ? rel[p] : 0.0f, in ? judged[p] : 0.0f,
+                                  level);
+      c.div[l][i] = in ? tdiv[p] : 1.0f;
+      c.w[l][i] = in ? tw[p] : 0.0f;
+      t[0][l] += c.x[l][i].b;
+      t[1][l] += c.x[l][i].jn;
+      t[2][l] += c.x[l][i].cj;
+    }
+    c.slots[l] = chunk < fm::kSlotChunks ? fm::lane_slots(chunk, l, d) : 0u;
+  }
+  for (int k = 0; k < 3; ++k) scan_lanes(t[k], 32, c.s[k]);
+}
+
+// Walk every lane from its prefix, then scan the lanes' DCG and AP sums
+// (the kernels' shortcut for a warp with no graded rank and no slot, which
+// gives the same result, is not taken).
+void chunk_walk(Chunk& c, int chunk, int d, float n_rel, float bden,
+                fm::Acc* acc, fm::Cut* cuts) {
+  float dcg[32], ap[32];
+  for (int l = 0; l < 32; ++l) {
+    fm::walk_lane(c.x[l], c.div[l], c.w[l], chunk * fm::kChunk + l * kL, d,
+                  n_rel, bden, c.slots[l], c.pre[l], acc[l], cuts);
+    dcg[l] = c.pre[l].dcg;
+    ap[l] = c.pre[l].ap;
+  }
+  scan_lanes(dcg, 32, c.dcg);
+  scan_lanes(ap, 32, c.ap);
+}
+
+// The slots' DCG and AP: the sum before the chunk, the lanes' before the
+// slot's lane, then the lane's through the slot.
+void chunk_fix(const Chunk& c, float dcg_before, float ap_before,
+               fm::Cut* cuts) {
+  for (int l = 0; l < 32; ++l) {
+    const float dcg_base = dcg_before + c.dcg.excl[l];
+    const float ap_base = ap_before + c.ap.excl[l];
+    for (int k = 0; k < fm::kNumSlots - 1; ++k) {
+      if ((c.slots[l] >> k) & 1u) {
+        cuts[k].dcg = dcg_base + cuts[k].dcg;
+        cuts[k].ap = ap_base + cuts[k].ap;
+      }
+    }
+  }
+}
+
+// A warp's lanes' reductions, each summed by the butterfly.
+fm::Acc warp_acc(const fm::Acc* lanes) {
+  float v[4][32];
+  for (int l = 0; l < 32; ++l) {
+    v[0][l] = lanes[l].bpref;
+    v[1][l] = lanes[l].zeros;
+    v[2][l] = lanes[l].rel_at_r;
+    v[3][l] = lanes[l].rbp;
+  }
+  return {butterfly(v[0]), butterfly(v[1]), butterfly(v[2]),
+          butterfly(v[3])};
+}
+
+// The 64 columns, two a lane.
+void epilogue(fm::Cut* cuts, const fm::Cut& all, const fm::Acc& acc,
+              const float* scal, float* out, int d) {
+  for (int k = 0; k < fm::kNumSlots; ++k) {
+    if (fm::slot_is_total(k, d)) cuts[k] = all;
+  }
+  for (int l = 0; l < 32; ++l) {
+    out[l] = fm::column(l, cuts, acc, scal);
+    out[l + 32] = fm::column(l + 32, cuts, acc, scal);
+  }
+}
+
+// A short row (d <= kShortMaxD): one warp walks its chunks in order.
+void fused_short_row(const float* rel, const float* judged, const float* scal,
+                     const float* tdiv, const float* tw, float* out, int d,
+                     float level) {
+  const float n_rel = scal[0];
+  const float bden = fminf(n_rel, scal[1]);
+  float carry[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};  // cum jn cj dcg ap
+  fm::Acc acc[32] = {};
+  fm::Cut cuts[fm::kNumSlots] = {};
+  std::vector<Chunk> cv(1);
+  Chunk& c = cv[0];
+  for (int chunk = 0; chunk * fm::kChunk < d; ++chunk) {
+    chunk_inputs(rel, judged, tdiv, tw, chunk, d, level, c);
+    for (int l = 0; l < 32; ++l) {
+      c.pre[l] = {carry[0] + c.s[0].excl[l], carry[1] + c.s[1].excl[l],
+                  carry[2] + c.s[2].excl[l], 0.0f, 0.0f};
+    }
+    chunk_walk(c, chunk, d, n_rel, bden, acc, cuts);
+    chunk_fix(c, carry[3], carry[4], cuts);
+    for (int k = 0; k < 3; ++k) carry[k] += c.s[k].total;
+    carry[3] += c.dcg.total;
+    carry[4] += c.ap.total;
+  }
+  const fm::Cut all = {carry[0], carry[4], carry[3], carry[2]};
+  epilogue(cuts, all, warp_acc(acc), scal, out, d);
+}
+
+// A long row: a block of kWarps warps, tile by tile, warp w on the tile's
+// chunk w; warp totals exchanged (the scanned three, then DCG and AP); the
+// lanes' reductions summed per warp, then over the warps in order.
+void fused_long_row(const float* rel, const float* judged, const float* scal,
+                    const float* tdiv, const float* tw, float* out, int d,
+                    float level) {
+  const float n_rel = scal[0];
+  const float bden = fminf(n_rel, scal[1]);
+  float carry[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};  // cum jn cj dcg ap
+  std::vector<fm::Acc> acc(kWarps * 32, fm::Acc{0.0f, 0.0f, 0.0f, 0.0f});
+  fm::Cut cuts[fm::kNumSlots] = {};
+  std::vector<Chunk> cs(kWarps);
+  for (int tile = 0; tile * kTile < d; ++tile) {
+    Scan b[3];
+    for (int w = 0; w < kWarps; ++w) {
+      chunk_inputs(rel, judged, tdiv, tw, tile * kWarps + w, d, level, cs[w]);
+    }
+    for (int k = 0; k < 3; ++k) {
+      float tot[kWarps];
+      for (int w = 0; w < kWarps; ++w) tot[w] = cs[w].s[k].total;
+      scan_lanes(tot, kWarps, b[k]);
+    }
+    float tot_dcg[kWarps], tot_ap[kWarps];
+    for (int w = 0; w < kWarps; ++w) {
+      Chunk& c = cs[w];
+      for (int l = 0; l < 32; ++l) {
+        float p[3];
+        for (int k = 0; k < 3; ++k) {
+          p[k] = (carry[k] + b[k].excl[w]) + c.s[k].excl[l];
+        }
+        c.pre[l] = {p[0], p[1], p[2], 0.0f, 0.0f};
+      }
+      chunk_walk(c, tile * kWarps + w, d, n_rel, bden, &acc[w * 32], cuts);
+      tot_dcg[w] = c.dcg.total;
+      tot_ap[w] = c.ap.total;
+    }
+    Scan bd, ba;
+    scan_lanes(tot_dcg, kWarps, bd);
+    scan_lanes(tot_ap, kWarps, ba);
+    for (int w = 0; w < kWarps; ++w) {
+      chunk_fix(cs[w], carry[3] + bd.excl[w], carry[4] + ba.excl[w], cuts);
+    }
+    for (int k = 0; k < 3; ++k) carry[k] += b[k].total;
+    carry[3] += bd.total;
+    carry[4] += ba.total;
+  }
+  // per warp: the butterfly; then warp 0 adds the warps' sums in order
+  fm::Acc sum = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int w = 0; w < kWarps; ++w) {
+    const fm::Acc a = warp_acc(&acc[w * 32]);
+    sum.bpref += a.bpref;
+    sum.zeros += a.zeros;
+    sum.rel_at_r += a.rel_at_r;
+    sum.rbp += a.rbp;
+  }
+  const fm::Cut all = {carry[0], carry[4], carry[3], carry[2]};
+  epilogue(cuts, all, sum, scal, out, d);
 }
 
 int next_pow2(int n, int minimum) {
@@ -174,9 +371,17 @@ int main(int argc, char** argv) {
     read_all(rel);
     read_all(judged);
     read_all(scal);
+    // the rank-term table, as the kernels build it
+    std::vector<float> tdiv(d), tw(d);
+    for (int p = 0; p < d; ++p) {
+      tdiv[p] = fm::dcg_divisor(p);
+      tw[p] = fm::rbp_term(p);
+    }
     for (int r = 0; r < q; ++r) {
-      fused_row(&rel[r * d], &judged[r * d], &scal[r * fm::kScalarWidth],
-                &out[r * fm::kOutWidth], d, level);
+      const size_t at = static_cast<size_t>(r) * d;
+      (d <= fm::kShortMaxD ? fused_short_row : fused_long_row)(
+          &rel[at], &judged[at], &scal[r * fm::kScalarWidth], tdiv.data(),
+          tw.data(), &out[r * fm::kOutWidth], d, level);
     }
     write_all(out);
     return 0;

@@ -2,9 +2,11 @@
 
 The counterpart of ``repro.kernels.fused_measures``: every standard
 trec_eval column from the rank-sorted relevance rows in one pass.  The
-kernel (``csrc/fused_measures.cu``) walks each query's row in tiles with a
-block-wide scan; :func:`fused_measures_plain` is the same arithmetic as the
-Pallas ``_kernel`` with ``torch.cumsum``.
+kernel (``csrc/fused_measures.cu``) walks each row in 256-rank chunks with
+warp scans: a warp per row up to D = 2,048, else a block per row (after a
+prologue launch that builds the rank-term table; the C entry chooses from
+D); :func:`fused_measures_plain` is the same arithmetic as the Pallas
+``_kernel`` with ``torch.cumsum``.
 
 Inputs (already rank-sorted by score desc / tiebreak asc):
   rel      [Q, D] f32 — judgment of doc at each rank (0 unjudged/padding)
@@ -45,8 +47,12 @@ COLUMNS = (
 OUT_WIDTH = 64  # len(COLUMNS) == 55
 SCALAR_WIDTH = 16
 
-#: kernel launches since the count was last set to 0 (plain calls excluded)
+#: calls that launched the kernel since the count was last set to 0 (one
+#: per call; plain calls excluded)
 LAUNCHES = 0
+#: kernels those calls launched, as the C entry reports them (the rank-term
+#: table's prologue and the pass over the rows when rows are long)
+KERNEL_LAUNCHES = 0
 
 
 def fused_measures_plain(rel, judged, scalars, relevance_level: float = 1.0):
@@ -96,8 +102,8 @@ def _lib():
     fn = lib.fused_measures_launch
     if fn.argtypes is None:
         p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_float, p]
+        fn.argtypes = [p, p, p, p, p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_float, p, ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
     return fn
 
@@ -134,14 +140,19 @@ def fused_measures(rel_sorted, judged_sorted, scalars,
     out = torch.empty((q, OUT_WIDTH), dtype=torch.float32, device=dev)
     if q == 0:
         return out
+    # the rank-term table of long rows (the C entry chooses; 8·D bytes)
+    table = torch.empty(2 * d, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        launched = ctypes.c_int(0)
         rc = _lib()(rel_sorted.data_ptr(), judged_sorted.data_ptr(),
-                    scalars.data_ptr(), out.data_ptr(), q, d,
-                    float(relevance_level), stream)
+                    scalars.data_ptr(), out.data_ptr(), table.data_ptr(), q,
+                    d, float(relevance_level), stream,
+                    ctypes.byref(launched))
     if rc != 0:
         raise RuntimeError(
             f"fused_measures kernel launch failed: CUDA error {rc}")
-    global LAUNCHES
+    global LAUNCHES, KERNEL_LAUNCHES
     LAUNCHES += 1
+    KERNEL_LAUNCHES += launched.value
     return out

@@ -1,14 +1,17 @@
 """The CUDA kernels against their plain versions, on a GPU.
 
 Edge shapes the smoke test's main path does not reach: one-rank rows,
-rows shorter than every cutoff, tiles cut by D, k above D, several tiles
+rows shorter than every cutoff, both regimes of the fused-measure kernel
+(a warp per row to D = 2,048, a block per row above) with Q off the
+block's rows and above the persistent grid, D off a multiple of 4 and
+rows off 16-byte alignment; tiles cut by D, k above D, several tiles
 merged into the running top-k, heavy ties and signed zeros; the top-k's
 split path (one to three rows of up to 10^6, misaligned rows, ascending
 and all-equal scores); EmbeddingBag at odd widths, with empty bags, one
 bag holding every lookup and no lookups, and its fixed-length entry and
 the all-fields lookup bit for bit against the CPU, with an out-of-range id
-trapping on the device; both hot-path wrappers under
-``torch.cuda.set_sync_debug_mode("error")``; and smoke-size recsys steps
+trapping on the device; the hot-path wrappers (top-k, EmbeddingBag, the
+fused measures) under ``torch.cuda.set_sync_debug_mode("error")``; and smoke-size recsys steps
 on the card against the CPU.  Run on a machine with a GPU::
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -66,17 +69,7 @@ def _fused_inputs(q, d, seed):
     return [torch.from_numpy(x) for x in (rel, judged, scal)]
 
 
-@pytest.mark.parametrize("q,d,level", [
-    (1, 1, 1.0), (3, 8, 1.0), (5, 64, 2.0), (7, 1000, 1.0), (4, 1024, 1.0),
-    (3, 1100, 1.0), (2, 5000, 1.0), (300, 2048, 1.0),
-])
-def test_fused_kernel_matches_plain(cuda, q, d, level):
-    args = [t.to(cuda) for t in _fused_inputs(q, d, q + d)]
-    before = FM.LAUNCHES
-    got = FM.fused_measures(*args, level)
-    assert FM.LAUNCHES == before + 1
-    want = FM.fused_measures_plain(*args, level)
-    torch.cuda.synchronize()
+def _assert_fused_matches(got, want):
     for c, name in enumerate(FM.COLUMNS):
         if name.startswith(EXACT):
             assert torch.equal(got[:, c], want[:, c]), name
@@ -84,6 +77,43 @@ def test_fused_kernel_matches_plain(cuda, q, d, level):
             assert torch.allclose(got[:, c], want[:, c], atol=TOL,
                                   rtol=TOL), name
     assert not got[:, len(FM.COLUMNS):].any()
+
+
+@pytest.mark.parametrize("q,d,level", [
+    (1, 1, 1.0), (3, 8, 1.0), (5, 64, 2.0), (7, 1000, 1.0), (4, 1024, 1.0),
+    (3, 1100, 1.0), (2, 5000, 1.0), (300, 2048, 1.0),
+    # a warp per row: Q not a multiple of a block's 8 rows; Q above the
+    # persistent grid's warps; the regime edge; D not a multiple of 4
+    (13, 1024, 1.0), (20000, 64, 1.0), (6, 2048, 2.0), (7, 1023, 1.0),
+    # a block per row: the regime edge, D not a multiple of 4, one row of
+    # the deep corner, relevance level 2
+    (5, 2049, 1.0), (3, 4099, 2.0), (1, 65536, 1.0), (9, 3000, 2.0),
+])
+def test_fused_kernel_matches_plain(cuda, q, d, level):
+    args = [t.to(cuda) for t in _fused_inputs(q, d, q + d)]
+    before = FM.LAUNCHES, FM.KERNEL_LAUNCHES
+    got = FM.fused_measures(*args, level)
+    # one call; the rank-term table's prologue too when rows are long
+    assert (FM.LAUNCHES, FM.KERNEL_LAUNCHES) == (
+        before[0] + 1, before[1] + (1 if d <= 2048 else 2))
+    want = FM.fused_measures_plain(*args, level)
+    torch.cuda.synchronize()
+    _assert_fused_matches(got, want)
+
+
+@pytest.mark.parametrize("q,d", [(9, 1024), (3, 4096)])
+def test_fused_kernel_takes_rows_off_16_byte_alignment(cuda, q, d):
+    """Contiguous views starting one float into their storage: the kernel
+    takes scalar loads for them."""
+    args = []
+    for t in _fused_inputs(q, d, d):
+        flat = torch.empty(t.numel() + 1, device=cuda)
+        flat[1:] = t.reshape(-1).to(cuda)
+        args.append(flat[1:].view(t.shape))
+    got = FM.fused_measures(*args, 1.0)
+    want = FM.fused_measures_plain(*args, 1.0)
+    torch.cuda.synchronize()
+    _assert_fused_matches(got, want)
 
 
 @pytest.mark.parametrize("q,d,k,ties", [
@@ -418,6 +448,20 @@ def test_hot_path_wrappers_do_not_synchronize(cuda):
         TK.topk(rows, 100)     # one pass
         E.multi_hot_lookup_all(table, ids, mask, cfg)
         EB.embedding_bag_fixed(table, ids.reshape(-1, 8))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_fused_wrapper_does_not_synchronize(cuda):
+    short = [t.to(cuda) for t in _fused_inputs(40, 1024, 0)]
+    long = [t.to(cuda) for t in _fused_inputs(3, 8192, 1)]
+    FM.fused_measures(*short)  # builds and loads the kernel first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        FM.fused_measures(*short)  # a warp per row
+        FM.fused_measures(*long)   # the table's prologue, a block per row
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()

@@ -5,8 +5,10 @@ kernels run (the per-rank scan step, the cutoff slots, the 64 output
 columns; the top-k's key order, admission test, radix select and bitonic
 sort).  ``csrc/host_check.cpp`` runs those same functions rank by rank and
 key by key on the CPU, with the top-k kernel's split-and-merge (mode
-``topk_split Q D K S STAGE``); this test builds it (no torch headers, about
-a second) and holds it against the plain PyTorch versions on small rows.  It is the only check of the kernels'
+``topk_split Q D K S STAGE``), and walks each fused-measure row chunk by
+chunk and lane by lane as the kernel's two regimes do; this test builds
+it (no torch headers, about a second) and holds it against the plain
+PyTorch versions on small rows.  It is the only check of the kernels'
 arithmetic that needs no GPU; the kernels themselves are held against the
 plain versions on the card by ``chip_smoke.py``.
 """
@@ -57,8 +59,15 @@ def _fused_inputs(q, d, seed):
 
 @pytest.mark.parametrize("q,d,level", [
     (4, 1, 1.0), (5, 8, 1.0), (3, 1000, 1.0), (4, 1100, 2.0), (2, 3000, 1.0),
+    # the edge between a warp per row and a block per row, and a D that is
+    # not a multiple of 4 over three tiles of the block's walk
+    (3, 2048, 1.0), (3, 2049, 1.0), (2, 4099, 2.0),
 ])
 def test_fused_row_math_matches_plain(host_check, q, d, level):
+    """The kernels' walk (rank-term table; a warp per row up to D = 2,048,
+    else a block per row in tiles of 4 chunks, with the carries between
+    chunks and tiles; cutoff slots recorded by the lane holding their rank;
+    two columns a lane), run by the host check, against the plain version."""
     rel, judged, scal = _fused_inputs(q, d, q * d)
     out = subprocess.run(
         [host_check, "fused", str(q), str(d), repr(level)],
