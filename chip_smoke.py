@@ -9,7 +9,9 @@ points a user calls:
 
 * A. ``python -m repro_torch`` (in-process, ``--device cuda``) on the
   conformance fixtures, plain and ``--sharded``: both must byte-match
-  ``tests/fixtures/conformance.golden``.
+  ``tests/fixtures/conformance.golden``; ``python -m
+  repro_torch.compare`` on the three sweep fixtures, plain and
+  ``--sharded``, must byte-match ``tests/fixtures/compare.golden``.
 * B. The paper's largest grid corner (10,000 queries x 1,000 docs, 128
   judged per query, the paper's measure set), built from the seed and fed
   through ``buffer_from_arrays``: ``RelevanceEvaluator.evaluate_buffer``
@@ -35,14 +37,32 @@ points a user calls:
   come from ``data/recsys_data`` with the seed; head rows of each answer are recomputed on the CPU with the
   same weights (atol = rtol = 1e-4) and the in-loop metrics recomputed on
   the CPU from the card's scores (2e-4).
+* F. A Robust04-sized hyperparameter sweep: 64 runs x 249 queries x 1,000
+  docs (128 judged, grades -1..3, the paper's measure set), one buffer
+  from the seed re-scored 64 times (``with_scores``), through
+  ``evaluate_sweep`` on both backends: ``"single"`` bit-identical to 64
+  ``evaluate_buffer`` calls, ``"sharded"`` (B1, 8 calls of one launch at
+  ``[2,048, 1,024]``) with count columns exact and the rest within TOL,
+  the first 4 runs against the CPU port.  Then ``significance_report``
+  on the ``[64, 249]`` ``map`` table (t-test and 2,000 sign flips) on the
+  card against the CPU (t within 1e-4 of max(|t|, 1), p within 1e-5),
+  exact enumeration on 16 queries equal to the CPU's, Monte Carlo within
+  5 sigma of it.  The rank-reduction engine on phase B's batch against
+  the sorted engine (count columns exact, the rest within TOL), with its
+  seconds and peak memory.
+* G. The paper's Q-learning demo: ``build_collection()`` at its defaults,
+  20 episodes (alpha 0.1, gamma 0.95, epsilon 0.05) with the
+  environment's evaluator on the card, then a fixed action sequence on
+  the card against the CPU port (rewards within 2e-4); ms per step.
 * D. Each kernel against its plain PyTorch version on the main paths'
   inputs, with median times, the plain version's time, one PyTorch call's
   time where one computes the same function (``torch.topk``,
   ``F.embedding_bag``; timed only, the port never calls them), the bound,
   the launch counts from B, C and E and the kernels that one wrapper call
-  launched (as their C entry points count them): B1 at phase B's batch
-  and at phase C's (``[1,024, 65,536]``, two launches a call: the
-  rank-term table, then the rows), B2 at ``[1,024, 65,536]`` (phase C)
+  launched (as their C entry points count them): B1 at phase B's batch,
+  at phase C's (``[1,024, 65,536]``, two launches a call: the
+  rank-term table, then the rows) and at one group of phase F's sharded
+  sweep (``[2,048, 1,024]``), B2 at ``[1,024, 65,536]`` (phase C)
   and ``[1, 10^6]`` (phase E), B3's all-fields call at the ``serve_bulk``
   batch (phase E), with its general sort-and-CSR wrapper at one field's
   bags beside it.
@@ -215,23 +235,42 @@ def _stacked(cols):
 # -- phases -------------------------------------------------------------------
 
 
-def phase_cli(device):
-    from repro_torch import cli
+def _golden(name):
+    with open(os.path.join(FIXTURES, name), newline="") as fh:
+        return fh.read()
 
-    qrel = os.path.join(FIXTURES, "conformance.qrel")
-    run = os.path.join(FIXTURES, "conformance.run")
-    with open(os.path.join(FIXTURES, "conformance.golden"),
-              newline="") as fh:
-        golden = fh.read()
+
+def _cli_modes(main, args, golden, what):
+    """``main`` plain and ``--sharded`` must print ``golden`` byte for
+    byte."""
     modes = {}
     for extra in ([], ["--sharded"]):
         buf = io.StringIO()
-        rc = cli.main([*extra, "--device", device, qrel, run], out=buf)
-        check(rc == 0, f"cli {extra} exited {rc}")
+        rc = main([*extra, *args], out=buf)
+        check(rc == 0, f"{what} {extra} exited {rc}")
         check(buf.getvalue() == golden,
-              f"cli {extra} output differs from conformance.golden")
+              f"{what} {extra} output differs from its golden")
         modes["sharded" if extra else "plain"] = "byte-match"
-    return {"phase": "A", "cli": modes, "golden_lines": golden.count("\n")}
+    return modes
+
+
+def phase_cli(device):
+    from repro_torch import cli, compare
+
+    qrel = os.path.join(FIXTURES, "conformance.qrel")
+    run = os.path.join(FIXTURES, "conformance.run")
+    runs = [run] + [os.path.join(FIXTURES, n)
+                    for n in ("sweep_b.run", "sweep_c.run")]
+    golden = _golden("conformance.golden")
+    compare_golden = _golden("compare.golden")
+    return {"phase": "A",
+            "cli": _cli_modes(cli.main, ["--device", device, qrel, run],
+                              golden, "cli"),
+            "golden_lines": golden.count("\n"),
+            "compare": _cli_modes(compare.main,
+                                  ["--device", device, qrel, *runs],
+                                  compare_golden, "compare"),
+            "compare_golden_lines": compare_golden.count("\n")}
 
 
 def paper_data(rng, nq, nd, nj):
@@ -717,14 +756,16 @@ def phase_recsys(device, seed):
     return result, keep
 
 
-def phase_kernels(paper, deep, recsys, launches):
+def phase_kernels(paper, deep, recsys, sweep, launches):
     """Each kernel against its plain version on the main path's inputs."""
     import torch
 
-    # B1 at phase B's batch (a warp per row, one launch a call) and phase
-    # C's (a block per row after the rank-term table: two launches)
+    # B1 at phase B's batch (a warp per row, one launch a call), phase C's
+    # (a block per row after the rank-term table: two launches) and one
+    # group of phase F's sharded sweep (8 runs stacked, one launch)
     rows = [fused_row(*paper, launches["fused_measures"], per_call=1),
-            fused_row(*deep, launches["fused_measures_deep"], per_call=2)]
+            fused_row(*deep, launches["fused_measures_deep"], per_call=2),
+            fused_row(*sweep, launches["fused_measures_sweep"], per_call=1)]
 
     # B2: top-k at phase C's masked score matrix
     ev, buf = deep
@@ -962,6 +1003,289 @@ def embedding_bag_csr_row(xdeepfm, field=0):
             lib_ids, table, mode="sum", per_sample_weights=lib_w)))
 
 
+#: phase F: a Robust04-sized hyperparameter sweep (249 queries, the paper
+#: grid's depth and judged count), tested pairwise on ``map``
+SWEEP_K, SWEEP_Q = 64, 249
+SWEEP_PERMUTATIONS = 2000
+SWEEP_EXACT_Q = 16  # exact enumeration on the first 16 queries
+SWEEP_CPU_RUNS = 4  # runs evaluated again by the port on the CPU
+
+
+def _compare_tables(got, want, keys, what):
+    """[K, Q, M] tables: count columns bit-identical, the rest within TOL.
+    Returns the max abs difference."""
+    worst = 0.0
+    for m, key in enumerate(keys):
+        a, b = got[..., m], want[..., m]
+        if is_exact(key):
+            check(np.array_equal(a, b), f"{what}: {key} not exact")
+        else:
+            check(np.allclose(a, b, atol=TOL, rtol=TOL),
+                  f"{what}: {key} beyond {TOL}")
+        worst = max(worst, float(np.abs(a - b).max()))
+    return worst
+
+
+def _synced(fn):
+    """(result, seconds) of ``fn`` on the host clock, card synchronized."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_sweep(device, rng, seed):
+    """64 runs x 249 queries x 1,000 docs through ``evaluate_sweep`` on
+    both backends, held against 64 separate evaluations, the CPU port and
+    each other; then ``significance_report`` on the [64, 249] ``map`` table
+    on the card against the CPU."""
+    import torch
+
+    from repro_torch import stats as S
+    from repro_torch.core import (RelevanceEvaluator, concat_run_buffers,
+                                  evaluate_sweep)
+    from repro_torch.kernels import fused_measures as FM
+
+    t0 = time.perf_counter()
+    qrel, qids, docnos, scores = paper_data(rng, SWEEP_Q, PAPER_D, PAPER_J)
+    ev = RelevanceEvaluator(qrel, PAPER_MEASURES, device=device)
+    base = ev.buffer_from_arrays(qids, docnos, scores)
+    run_rng = np.random.default_rng([seed, SWEEP_K])
+    run_scores = [np.round(run_rng.random(base.scores.shape[0]), 3)
+                  for _ in range(SWEEP_K)]
+    bufs = [base.with_scores(sc) for sc in run_scores]
+    setup_s = time.perf_counter() - t0
+
+    single, single_s = _synced(lambda: evaluate_sweep(ev, bufs))
+    keys = single.measure_keys
+    check(single.table.shape == (SWEEP_K, SWEEP_Q, len(keys)),
+          f"sweep table shape {single.table.shape}")
+    check(np.isfinite(single.table).all(), "non-finite sweep values")
+    zero_launches()
+    kernels_before = FM.KERNEL_LAUNCHES
+    sharded, sharded_s = _synced(
+        lambda: evaluate_sweep(ev, bufs, backend="sharded"))
+    launches = read_launches()
+    b1_kernels = FM.KERNEL_LAUNCHES - kernels_before
+    groups = -(-SWEEP_K // (ev.chunk_queries // SWEEP_Q))
+    check(launches["fused_measures"] == groups == 8,
+          f"sharded sweep: {launches['fused_measures']} fused calls, "
+          f"want 8")
+    check(b1_kernels == groups, f"sharded sweep launched {b1_kernels} B1 "
+          f"kernels, want {groups}")
+    sharded_err = _compare_tables(sharded.table, single.table, keys,
+                                  "sharded vs single sweep")
+
+    # 64 separate evaluate_buffer calls: bit-identical to the sweep
+    def separate():
+        return [ev.evaluate_buffer(b) for b in bufs]
+
+    per_run, separate_s = _synced(separate)
+    for k, res in enumerate(per_run):
+        for q, qid in enumerate(single.qids):
+            row = res[qid]
+            check(all(single.table[k, q, m] == row[key]
+                      for m, key in enumerate(keys)),
+                  f"sweep run {k} query {qid} differs from evaluate_buffer")
+
+    # the first runs on the CPU port
+    t0 = time.perf_counter()
+    cpu_ev = RelevanceEvaluator(qrel, PAPER_MEASURES, device="cpu")
+    cpu_base = cpu_ev.buffer_from_arrays(qids, docnos, scores)
+    cpu = evaluate_sweep(cpu_ev, [cpu_base.with_scores(sc)
+                                  for sc in run_scores[:SWEEP_CPU_RUNS]])
+    cpu_s = time.perf_counter() - t0
+    cpu_err = _compare_tables(cpu.table, single.table[:SWEEP_CPU_RUNS],
+                              keys, "card vs CPU sweep")
+
+    # significance on the [64, 249] map table, card against CPU
+    x_host = np.ascontiguousarray(single.measure("map"))
+    x = torch.from_numpy(x_host).to(device)
+    times = {}
+    (t, p), times["t_s"] = _synced(lambda: S.paired_t_matrix(x))
+    perm, times["permutation_s"] = _synced(lambda: S.paired_permutation_matrix(
+        x, n_permutations=SWEEP_PERMUTATIONS, seed=seed))
+    exact, times["exact_s"] = _synced(
+        lambda: S.paired_permutation_exact(x[:, :SWEEP_EXACT_Q]))
+    rep, times["report_s"] = _synced(lambda: single.compare(
+        "map", tests=("t", "permutation"),
+        n_permutations=SWEEP_PERMUTATIONS, seed=seed))
+    t0 = time.perf_counter()
+    cpu_rep = S.significance_report(
+        x_host, tests=("t", "permutation"),
+        n_permutations=SWEEP_PERMUTATIONS, seed=seed, device="cpu")
+    cpu_exact = S.paired_permutation_exact(x_host[:, :SWEEP_EXACT_Q],
+                                           device="cpu")
+    times["cpu_report_and_exact_s"] = time.perf_counter() - t0
+    check(np.array_equal(rep["t"], t.cpu().numpy())
+          and np.array_equal(rep["p_permutation"], perm.cpu().numpy()),
+          "significance_report differs from its parts")
+    g_t, c_t = rep["t"], cpu_rep["t"]
+    finite = np.isfinite(c_t)
+    check(np.array_equal(np.isfinite(g_t), finite)
+          and np.array_equal(g_t[~finite], c_t[~finite]),
+          "t: infinities differ between card and CPU")
+    # relative to max(|t|, 1): float32 means of near-equal systems are
+    # summed in another order on the card, which moves a t near 0 by ~1e-6
+    t_rel = float(np.max(np.abs(g_t[finite] - c_t[finite])
+                         / np.maximum(np.abs(c_t[finite]), 1.0)))
+    check(t_rel <= 1e-4, f"t on the card beyond 1e-4 relative of the CPU "
+          f"({t_rel})")
+    p_err = 0.0
+    for key in ("p", "p_holm", "p_bonferroni"):
+        err = float(np.abs(rep[key] - cpu_rep[key]).max())
+        check(err <= 1e-5, f"{key} on the card beyond 1e-5 of the CPU")
+        p_err = max(p_err, err)
+    check(torch.equal(exact.cpu(), cpu_exact),
+          "exact enumeration differs between card and CPU")
+    # Monte Carlo on the card within 5 sigma (+ smoothing) of exact
+    mc16 = S.paired_permutation_matrix(
+        x[:, :SWEEP_EXACT_Q], n_permutations=SWEEP_PERMUTATIONS,
+        seed=seed).cpu().numpy()
+    pe = cpu_exact.numpy().astype(np.float64)
+    bound = (5 * np.sqrt(pe * (1 - pe) / SWEEP_PERMUTATIONS)
+             + 2 / (SWEEP_PERMUTATIONS + 1))
+    check((np.abs(mc16 - pe) <= bound).all(),
+          "Monte Carlo p-values beyond 5 sigma of exact enumeration")
+    # one sweep group (8 runs stacked, as the sweep stacks them): B1's row
+    keep = (ev, concat_run_buffers(bufs[:ev.chunk_queries // SWEEP_Q]))
+    return {"phase": "F", "runs": SWEEP_K, "queries": SWEEP_Q,
+            "docs": PAPER_D, "judged": PAPER_J, "setup_s": setup_s,
+            "single_s": single_s, "sharded_s": sharded_s,
+            "separate_evaluate_buffer_s": separate_s,
+            "cpu_sweep_runs": SWEEP_CPU_RUNS, "cpu_sweep_s": cpu_s,
+            "sharded_max_abs_diff": sharded_err,
+            "cpu_max_abs_diff": cpu_err, "launches": launches,
+            "b1_kernel_launches": b1_kernels, "groups": groups,
+            "significance": dict(
+                times, permutations=SWEEP_PERMUTATIONS,
+                exact_queries=SWEEP_EXACT_Q, t_max_rel_diff_vs_cpu=t_rel,
+                p_max_abs_diff_vs_cpu=p_err,
+                mc_max_abs_diff_vs_exact=float(np.abs(mc16 - pe).max()),
+                significant_pairs_holm=int(
+                    np.triu(rep["p_holm"] < 0.05, 1).sum()))}, keep
+
+
+def phase_ranked(paper):
+    """The rank-reduction engine on phase B's batch against the sorted
+    engine on the card: count columns exact, the rest within TOL."""
+    import torch
+
+    from repro_torch.core import measures as M
+    from repro_torch.core import ranked as RK
+
+    ev, buf = paper
+    nq = len(buf.qids)
+    batch = ev.batch_from_buffer(buf)
+    level = ev.relevance_level
+    want = M.compute_measures(batch, ev.measures, level)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    rb = RK.from_eval_batch(batch)
+    got, seconds = _synced(
+        lambda: RK.compute_measures_ranked(rb, ev.measures, level))
+    peak = torch.cuda.max_memory_allocated() - base
+    _, core_s = _synced(lambda: M.compute_measures(batch, ev.measures, level))
+    keys = ev.measure_keys
+    worst = _compare_tables(
+        torch.stack([got[k][:nq] for k in keys], -1).cpu().numpy(),
+        torch.stack([want[k][:nq] for k in keys], -1).cpu().numpy(),
+        keys, "ranked vs sorted engine")
+    return {"phase": "F-ranked", "shape": list(batch.scores.shape),
+            "judged_width": int(rb.judged_scores.shape[1]),
+            "ranked_s": seconds, "sorted_s": core_s,
+            "peak_extra_device_gb": peak / 1e9, "max_abs_diff": worst,
+            "compared": nq * len(keys)}, None
+
+
+#: phase G: the paper's query-expansion demo (synthetic_ir defaults)
+RL_EPISODES = 20
+RL_FIXED_ACTIONS = 5  # fixed actions per query, card against CPU
+RL_FIXED_QUERIES = 10
+
+
+def phase_rl(device, seed):
+    """``build_collection()`` at its defaults, 20 Q-learning episodes with
+    the environment evaluating on the card, held episode by episode against
+    the same agent (seed and config) on the CPU port, and a fixed action
+    sequence on the card against the CPU port."""
+    from repro_torch.data import synthetic_ir as SIR
+    from repro_torch.rl.environment import QueryExpansionEnv
+    from repro_torch.rl.qlearning import QLearningAgent, QLearningConfig
+
+    t0 = time.perf_counter()
+    coll = SIR.build_collection()
+    build_s = time.perf_counter() - t0
+    env = QueryExpansionEnv(coll, device=device)
+    step_times = []
+    step = env.step
+
+    def timed_step(action):
+        t = time.perf_counter()
+        out = step(action)
+        step_times.append(time.perf_counter() - t)
+        return out
+
+    env.step = timed_step
+    cfg = QLearningConfig(alpha=0.1, gamma=0.95, epsilon=0.05, seed=seed)
+    agent = QLearningAgent(env, cfg)
+    qids = list(coll.qrels)
+    t0 = time.perf_counter()
+    rewards = agent.train(qids, RL_EPISODES)
+    train_s = time.perf_counter() - t0
+    check(len(rewards) == RL_EPISODES and np.isfinite(rewards).all(),
+          "Q-learning rewards not finite")
+    env.step = step
+
+    # the same agent on the CPU port: rewards within 2e-4 episode by
+    # episode, and q <- (1 - a) q + a (r + g max q') keeps every Q entry
+    # within 2e-4 / (1 - g) when each reward is within 2e-4
+    cpu_env = QueryExpansionEnv(coll, device="cpu")
+    cpu_agent = QLearningAgent(cpu_env, cfg)
+    t0 = time.perf_counter()
+    cpu_rewards = cpu_agent.train(qids, RL_EPISODES)
+    cpu_train_s = time.perf_counter() - t0
+    reward_diff = float(np.max(np.abs(np.subtract(rewards, cpu_rewards))))
+    check(reward_diff <= 2e-4,
+          f"Q-learning rewards: card vs CPU differ by {reward_diff}")
+    check(agent.q.keys() == cpu_agent.q.keys(),
+          "Q-learning: card and CPU agents visited different states")
+    q_diff = max(float(np.max(np.abs(agent.q[key] - qv)))
+                 for key, qv in cpu_agent.q.items())
+    check(q_diff <= 2e-4 / (1 - cfg.gamma),
+          f"Q-table: card vs CPU differ by {q_diff}")
+
+    actions = [int(a) for a in agent.actions[:RL_FIXED_ACTIONS]]
+    worst, n = 0.0, 0
+    for qid in qids[:RL_FIXED_QUERIES]:
+        env.reset(qid)
+        cpu_env.reset(qid)
+        for a in actions:
+            _, r_gpu, d_gpu, _ = env.step(a)
+            _, r_cpu, d_cpu, _ = cpu_env.step(a)
+            n += 1
+            worst = max(worst, abs(r_gpu - r_cpu))
+            check(d_gpu == d_cpu and abs(r_gpu - r_cpu) <= 2e-4,
+                  f"RL step {qid} {a}: card {r_gpu} vs CPU {r_cpu}")
+            if d_gpu:
+                break
+    ms = np.array(step_times) * 1e3
+    return {"phase": "G", "vocab": coll.cfg.vocab_size,
+            "docs": coll.n_docs, "queries": len(qids), "build_s": build_s,
+            "episodes": RL_EPISODES, "env_steps": len(step_times),
+            "train_s": train_s, "step_ms_p50": float(np.median(ms)),
+            "step_ms_mean": float(ms.mean()),
+            "total_reward": float(np.sum(rewards)),
+            "q_states": len(agent.q), "cpu_train_s": cpu_train_s,
+            "episode_max_abs_reward_diff_vs_cpu": reward_diff,
+            "q_max_abs_diff_vs_cpu": q_diff, "fixed_steps_compared": n,
+            "fixed_max_abs_reward_diff_vs_cpu": worst}, None
+
+
 # -- entry point --------------------------------------------------------------
 
 
@@ -1014,14 +1338,18 @@ def main(argv=None) -> int:
     out_b, paper = timed(phase_paper, "cuda", rng)
     out_c, deep = timed(phase_deep, "cuda", rng)
     out_e, recsys = timed(phase_recsys, "cuda", args.seed)
+    out_f, sweep = timed(phase_sweep, "cuda", rng, args.seed)
+    timed(phase_ranked, paper)
+    timed(phase_rl, "cuda", args.seed)
     launches = {"fused_measures": out_b["launches"]["fused_measures"],
+                "fused_measures_sweep": out_f["launches"]["fused_measures"],
                 "fused_measures_deep":
                     out_c["fused_launches"]["fused_measures"],
                 "topk": out_c["launches"]["topk"],
                 "topk_retrieval": out_e["launches"]["topk"],
                 "embedding_bag": out_e["launches"]["embedding_bag"]}
     t0 = time.perf_counter()
-    rows = phase_kernels(paper, deep, recsys, launches)
+    rows = phase_kernels(paper, deep, recsys, sweep, launches)
     emit({"phase": "D", "seconds": time.perf_counter() - t0})
     emit({"kernels": rows})
     print(card, flush=True)

@@ -6,6 +6,7 @@ Public API mirrors pytrec_eval:
 * :data:`supported_measures` — measure families available.
 * ``registry`` — the declarative measure table (both dialects).
 * ``measures`` / ``streaming`` — batched device entry points.
+* :func:`evaluate_sweep` — K runs against one qrel in one batched sweep.
 """
 
 from repro_torch.core.evaluator import (RelevanceEvaluator, RunBuffer,
@@ -26,13 +27,16 @@ from repro_torch.core.measures import (
     parse_measures,
 )
 from repro_torch.core.registry import MeasureError, MeasureSpec, REGISTRY
+from repro_torch.core.sweep import SweepResult, evaluate_sweep
 from repro_torch.core import registry, streaming, trec, sorting
 
 __all__ = [
     "RelevanceEvaluator",
     "RunBuffer",
+    "SweepResult",
     "aggregate_results",
     "concat_run_buffers",
+    "evaluate_sweep",
     "batch_from_flat",
     "batch_from_numpy",
     "supported_measures",

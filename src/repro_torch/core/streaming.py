@@ -1,18 +1,88 @@
-"""Streaming evaluation: metrics as (sum, count) sufficient statistics.
+"""Streaming (in-loop) evaluation: metrics as (sum, count) sufficient statistics.
 
-The port's slice of ``repro.core.streaming``: the two functions the fused
-(sharded) evaluator needs, on one device.  Every trec_eval measure is a
-per-query scalar, so the sufficient statistic for the corpus mean is just
-(sum, count).
+The port of ``repro.core.streaming`` on one device.  Every trec_eval
+measure is a per-query scalar, so the sufficient statistic for the corpus
+mean is just (sum, count): each step adds its queries' sums, one division
+at the end.
+
+Usage inside a loop::
+
+    state = metric_init(("ndcg", "recip_rank"), device="cuda")
+    ...
+    state = metric_update(state, batch, ("ndcg", "recip_rank"))
+    ...
+    means = metric_finalize(state)               # dict of scalars
+
+The state lives on the batches' device; nothing is copied to the host until
+the caller reads the means.  ``rank_metrics`` (the LM and GNN steps' gold-rank
+metrics) is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.core import measures as M
+from repro_torch.device import resolve_device
+
 MetricState = Dict[str, torch.Tensor]  # keys + "__count"
+
+
+def metric_init(measure_names: Tuple[str, ...], device=None) -> MetricState:
+    """Zero (sum, count) state for every output key of ``measure_names``.
+
+    >>> sorted(metric_init(("P_5", "map"), device="cpu"))
+    ['P_5', '__count', 'map']
+    """
+    dev = resolve_device(device)
+    keys = M.measure_keys(measure_names)
+    state = {k: torch.zeros((), dtype=torch.float32, device=dev)
+             for k in keys}
+    state["__count"] = torch.zeros((), dtype=torch.float32, device=dev)
+    return state
+
+
+def metric_update(
+    state: MetricState,
+    batch: M.EvalBatch,
+    measure_names: Tuple[str, ...],
+    relevance_level: float = 1.0,
+) -> MetricState:
+    """Add one batch's per-query measures (full sort + measure core)."""
+    parsed = M.parse_measures(measure_names)
+    per_query = M.compute_measures(batch, parsed, relevance_level)
+    qm = batch.query_mask.to(torch.float32)
+    new = dict(state)
+    for k, v in per_query.items():
+        new[k] = state[k] + torch.sum(v * qm)
+    new["__count"] = state["__count"] + torch.sum(qm)
+    return new
+
+
+def metric_update_run(
+    state: MetricState,
+    evaluator,
+    buf,
+    scores,
+    measure_names: Tuple[str, ...],
+    relevance_level: float | None = None,
+) -> MetricState:
+    """In-loop update from a pre-tokenized ``RunBuffer`` + fresh scores.
+
+    The session fast path for evaluating the *same* collection every step:
+    the buffer paid the string cost once; each step here is a numeric
+    scatter (``evaluator.batch_from_buffer``) plus the measure core on the
+    evaluator's device.  ``scores`` is the flat per-document score array in
+    the buffer's query order.  ``relevance_level`` defaults to the
+    evaluator's own level, at which the buffer's qrel-side statistics were
+    counted.
+    """
+    if relevance_level is None:
+        relevance_level = evaluator.relevance_level
+    batch = evaluator.batch_from_buffer(buf, scores)
+    return metric_update(state, batch, measure_names, relevance_level)
 
 
 def metric_update_cols(state: MetricState,

@@ -45,6 +45,31 @@ class ShardedResult(NamedTuple):
     aggregates: Dict[str, float]
 
 
+def select_backend(backend: str = "auto", device=None) -> str:
+    """Resolve an evaluation-backend name to ``"single"`` or ``"sharded"``.
+
+    ``"auto"`` picks the fused pipeline exactly when the evaluation runs on
+    CUDA (``device`` is the evaluator's device; ``None`` means CUDA) and
+    more than one CUDA device is visible, as the JAX package picks its
+    sharded pipeline when its backend has more than one device.  An
+    evaluator on the CPU always gets ``"single"``.  The fused pipeline
+    still runs on the evaluator's one device.
+
+    >>> select_backend("single")
+    'single'
+    >>> select_backend("auto", device="cpu")
+    'single'
+    """
+    if backend in ("single", "sharded"):
+        return backend
+    if backend != "auto":
+        raise ValueError(f"unknown backend {backend!r} "
+                         "(expected auto|single|sharded)")
+    if device is not None and torch.device(device).type != "cuda":
+        return "single"
+    return "sharded" if torch.cuda.device_count() > 1 else "single"
+
+
 class ShardedEvaluator:
     """Evaluate a :class:`RelevanceEvaluator`'s batches with the fused kernel.
 

@@ -11,8 +11,14 @@ and all-equal scores); EmbeddingBag at odd widths, with empty bags, one
 bag holding every lookup and no lookups, and its fixed-length entry and
 the all-fields lookup bit for bit against the CPU, with an out-of-range id
 trapping on the device; the hot-path wrappers (top-k, EmbeddingBag, the
-fused measures) under ``torch.cuda.set_sync_debug_mode("error")``; and smoke-size recsys steps
-on the card against the CPU.  Run on a machine with a GPU::
+fused measures) under ``torch.cuda.set_sync_debug_mode("error")``; smoke-size recsys steps
+on the card against the CPU; and the experiment slice: the sweep on both
+backends (``single`` bit-identical to separate evaluations, ``sharded``
+through the fused kernel), significance on the card against the CPU,
+permutation p-values unchanged by TF32 and drawn from a generator on the
+card, the ranked engine against the sorted one, streaming, the Q-learning
+environment and ``python -m repro_torch.compare``.  Run on a machine
+with a GPU::
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -502,3 +508,177 @@ def test_embedding_bag_fixed_rejects_what_the_kernel_does_not_take(cuda):
         EB.embedding_bag_fixed(table, ids.cpu())
     with pytest.raises(ValueError):
         EB.embedding_bag_fixed(table.double(), ids)
+
+
+# -- sweep, significance, ranked engine, streaming, Q-learning ---------------
+
+
+def _sweep_case(k=6, nq=30, nd=50, seed=7):
+    rng = np.random.default_rng(seed)
+    qrel, runs = {}, []
+    docs = {f"q{i}": [f"d{j}" for j in range(int(rng.integers(5, nd)))]
+            for i in range(nq)}
+    for qid, names in docs.items():
+        qrel[qid] = {d: int(rng.integers(-1, 4)) for d in names[::2]}
+    for _ in range(k):
+        runs.append({qid: {d: float(s) for d, s in zip(
+            names, np.round(rng.random(len(names)), 2))}
+            for qid, names in docs.items()})
+    return qrel, runs
+
+
+SWEEP_MEASURES = ("map", "ndcg", "P", "recall", "recip_rank", "bpref",
+                  "success", "Rprec", "num_rel_ret", "gm_map")
+
+
+def test_sweep_on_cuda_single_and_sharded(cuda):
+    """``single`` bit-identical to K separate ``evaluate_buffer`` calls on
+    the card; ``sharded`` (the fused kernel) matches it with count columns
+    exact; both match the CPU sweep within TOL."""
+    from repro_torch.core import evaluate_sweep
+
+    qrel, runs = _sweep_case()
+    ev = RelevanceEvaluator(qrel, SWEEP_MEASURES, device=cuda)
+    ev.chunk_queries = 64  # two runs a group, so several dispatches
+    single = evaluate_sweep(ev, runs)
+    before = FM.LAUNCHES
+    sharded = evaluate_sweep(ev, runs, backend="sharded")
+    assert FM.LAUNCHES - before == 3
+    cpu = evaluate_sweep(qrel, runs, measures=SWEEP_MEASURES, device="cpu")
+    for ki, run in enumerate(runs):
+        want = ev.evaluate_buffer(ev.tokenize_run(run))
+        for qi, qid in enumerate(single.qids):
+            for mi, key in enumerate(single.measure_keys):
+                assert single.table[ki, qi, mi] == want[qid][key], \
+                    (ki, qid, key)
+    for m, key in enumerate(single.measure_keys):
+        for other in (sharded, cpu):
+            a, b = other.table[..., m], single.table[..., m]
+            if key.startswith(EXACT) or key == "num_rel_ret":
+                assert np.array_equal(a, b), key
+            else:
+                np.testing.assert_allclose(a, b, atol=TOL, rtol=TOL,
+                                           err_msg=key)
+
+
+def test_significance_on_cuda_matches_cpu(cuda):
+    from repro_torch import stats as S
+
+    x = np.random.default_rng(3).random((12, 60)).astype(np.float32)
+    got = S.significance_report(x, tests=("t", "permutation"),
+                                n_permutations=500, device=cuda)
+    want = S.significance_report(x, tests=("t", "permutation"),
+                                 n_permutations=500, device="cpu")
+    np.testing.assert_allclose(got["t"], want["t"], rtol=1e-4, atol=1e-6)
+    for key in ("p", "p_holm", "p_bonferroni"):
+        np.testing.assert_allclose(got[key], want[key], rtol=0, atol=1e-5)
+    sub = x[:, :14]
+    assert torch.equal(S.paired_permutation_exact(sub, device=cuda).cpu(),
+                       S.paired_permutation_exact(sub, device="cpu"))
+
+
+def test_tf32_leaves_permutation_p_values_unchanged(cuda):
+    from repro_torch import stats as S
+
+    x = torch.from_numpy(np.random.default_rng(4).random(
+        (9, 16)).astype(np.float32)).to(cuda)
+    before = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        exact = S.paired_permutation_exact(x)
+        mc = S.paired_permutation_matrix(x, seed=2)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        assert torch.equal(S.paired_permutation_exact(x), exact)
+        assert torch.equal(S.paired_permutation_matrix(x, seed=2), mc)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def test_permutation_generator_is_seeded_on_the_device(cuda):
+    from repro_torch import stats as S
+
+    x = torch.from_numpy(np.random.default_rng(5).random(
+        (5, 30)).astype(np.float32)).to(cuda)
+    a = S.paired_permutation_matrix(x, seed=9)
+    assert a.device.type == "cuda"
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    assert torch.equal(S.paired_permutation_matrix(x, generator=gen), a)
+    assert torch.equal(S.paired_permutation_matrix(x, seed=9), a)
+    assert not torch.equal(S.paired_permutation_matrix(x, seed=10), a)
+    exact = S.paired_permutation_exact(x[:, :12])
+    mc = S.paired_permutation_matrix(x[:, :12], n_permutations=4000, seed=9)
+    off = ~torch.eye(5, dtype=torch.bool, device=cuda)
+    assert float((mc - exact)[off].abs().max()) < 0.06
+
+
+def test_ranked_engine_on_cuda_matches_sorted_engine(cuda):
+    from repro_torch.core import measures as M
+    from repro_torch.core import ranked as RK
+
+    rng = np.random.default_rng(6)
+    q, d = 300, 256
+    scores = torch.from_numpy(rng.choice(
+        np.array([0.0, -0.0, 0.5, 1.0], np.float32), (q, d))).to(cuda)
+    rel = torch.from_numpy(rng.integers(-1, 4, (q, d)).astype(
+        np.float32)).to(cuda)
+    judged = torch.from_numpy(rng.random((q, d)) < 0.3).to(cuda)
+    tiebreak = torch.from_numpy(np.argsort(rng.random((q, d)), 1).astype(
+        np.int32)).to(cuda)
+    batch = M.batch_from_dense(scores, rel, judged=judged, tiebreak=tiebreak)
+    parsed = M.parse_measures(sorted(M.SUPPORTED_MEASURES - {"gm_map"}))
+    want = M.compute_measures(batch, parsed)
+    got = RK.compute_measures_ranked(RK.from_eval_batch(batch, d), parsed)
+    for k, v in want.items():
+        if k.startswith(EXACT) or k.startswith("num_"):
+            assert torch.equal(got[k], v), k
+        else:
+            assert torch.allclose(got[k], v, atol=TOL, rtol=TOL), k
+
+
+def test_streaming_and_rl_on_cuda_match_cpu(cuda):
+    from repro_torch.core import streaming
+    from repro_torch.data import synthetic_ir as SIR
+    from repro_torch.rl.environment import EnvConfig, QueryExpansionEnv
+
+    names = ("map", "ndcg", "P")
+    qrel = trec.load_qrel(os.path.join(FIXTURES, "conformance.qrel"))
+    run = trec.load_run(os.path.join(FIXTURES, "conformance.run"))
+    sums = {}
+    for dev in (cuda, torch.device("cpu")):
+        ev = RelevanceEvaluator(qrel, names, device=dev)
+        buf = ev.tokenize_run(run)
+        state = streaming.metric_update_run(
+            streaming.metric_init(names, device=dev), ev, buf, None, names)
+        assert state["__count"].device.type == dev.type
+        sums[dev.type] = {k: float(v) for k, v in state.items()}
+    for k, v in sums["cpu"].items():
+        assert sums["cuda"][k] == pytest.approx(v, abs=TOL), k
+    coll = SIR.build_collection(SIR.CollectionConfig(
+        vocab_size=60, n_docs=15, n_queries=4, avg_doc_len=40, seed=2))
+    envs = [QueryExpansionEnv(coll, EnvConfig(max_actions=3), device=dev)
+            for dev in (cuda, "cpu")]
+    for qid in coll.qrels:
+        for env in envs:
+            env.reset(qid)
+        for a in (5, 60, 11):
+            (_, rg, dg, _), (_, rc, dc, _) = (env.step(a) for env in envs)
+            assert dg == dc and rg == pytest.approx(rc, abs=2e-4)
+            if dg:
+                break
+
+
+def test_compare_cli_on_cuda_byte_matches_golden(cuda):
+    import io
+
+    from repro_torch import compare
+
+    runs = [os.path.join(FIXTURES, n)
+            for n in ("conformance.run", "sweep_b.run", "sweep_c.run")]
+    with open(os.path.join(FIXTURES, "compare.golden"), newline="") as fh:
+        golden = fh.read()
+    for extra in ([], ["--sharded"]):
+        out = io.StringIO()
+        assert compare.main([*extra, os.path.join(FIXTURES,
+                                                  "conformance.qrel"),
+                             *runs], out=out) == 0
+        assert out.getvalue() == golden
