@@ -54,6 +54,35 @@ points a user calls:
   20 episodes (alpha 0.1, gamma 0.95, epsilon 0.05) with the
   environment's evaluator on the card, then a fixed action sequence on
   the card against the CPU port (rewards within 2e-4); ms per step.
+* N. NaN scores on the card: phase C's buffer with a seeded 1% of its
+  scores NaN (all the relevant documents of 8 queries among them), plus
+  phase C's first queries again as rows of 1 to 1,500 documents (some
+  shorter than k = 1,000), through the evaluator's top-k route (B2)
+  against the full sort: count columns bit-identical, the rest within
+  TOL.  B2 against its plain version on that NaN matrix and on phase E's
+  ``[1, 10^6]`` row with 1% NaN (indices exact, values bit for bit), and
+  SASRec ``retrieval_cand`` with NaN item embeddings on 1% of the
+  candidates against the CPU.
+* H. The paper's surface and the service.  ``python -m
+  repro_torch.baselines.trec_eval_cli`` byte-matches the JAX baseline's
+  recorded output; the child's start-up with and without the import of
+  the CLI (no torch, numpy or JAX in it); RQ1 (``bench_rq1.py``'s grid:
+  in-process ``RelevanceEvaluator(...).evaluate`` on the card against
+  ``workflow.serialize_invoke_parse``) and RQ2 (``bench_rq2.py``'s
+  depths: ``evaluate`` against ``native_ndcg.ndcg``, values within TOL).
+  ``get_arch("pytrec-eval")`` at ``eval_10k_1k`` (phase B's batch) and
+  ``eval_1k_64k`` (phase C's), both engines: ranked and sorted agree
+  (count aggregates exact), and the sorted step equals the mean of
+  ``evaluate_buffer``'s per-query results within TOL; step ms and peak
+  memory.  The service over TCP (``serve.testing.ServerThread`` on the
+  card, the port's ``EvalClient``): phase F's qrel as a ``"single"`` and a
+  ``"sharded"`` (B1) collection and a depth-bounded one (B2), 64
+  concurrent re-scored requests, each bit-identical to a direct
+  ``evaluate_buffer``, with fewer backend calls than requests; one
+  ``compare`` of 8 runs equal to ``significance_report`` on their
+  ``evaluate_sweep`` table; ``python -m repro_torch.serve --device
+  cuda`` through ``EvalClient.spawn_stdio``, its ``map`` equal to the
+  CLI's.  Every child process and client call has a timeout.
 * D. Each kernel against its plain PyTorch version on the main paths'
   inputs, with median times, the plain version's time, one PyTorch call's
   time where one computes the same function (``torch.topk``,
@@ -738,12 +767,13 @@ def phase_recsys(device, seed):
                     v[:, :CHECK_ROWS], cpu_v, f"{name} retrieval")}
             if name == "sasrec":
                 keep["retrieval_scores"] = scores.contiguous()
+                keep["sasrec"] = (model, cfg, args, dev_args)  # phase N
                 res["retrieval_cand"]["profile"] = profile_call(
                     lambda: step(model, *dev_args))
             del scores
         res["peak_device_gb"] = torch.cuda.max_memory_allocated() / 1e9
         result["archs"][name] = res
-        if name != "xdeepfm":
+        if name not in ("xdeepfm", "sasrec"):
             del model
         torch.cuda.empty_cache()
     result["launches"] = read_launches()
@@ -765,7 +795,8 @@ def phase_kernels(paper, deep, recsys, sweep, launches):
     # group of phase F's sharded sweep (8 runs stacked, one launch)
     rows = [fused_row(*paper, launches["fused_measures"], per_call=1),
             fused_row(*deep, launches["fused_measures_deep"], per_call=2),
-            fused_row(*sweep, launches["fused_measures_sweep"], per_call=1)]
+            fused_row(*sweep["b1"], launches["fused_measures_sweep"],
+                      per_call=1)]
 
     # B2: top-k at phase C's masked score matrix
     ev, buf = deep
@@ -1150,8 +1181,10 @@ def phase_sweep(device, rng, seed):
              + 2 / (SWEEP_PERMUTATIONS + 1))
     check((np.abs(mc16 - pe) <= bound).all(),
           "Monte Carlo p-values beyond 5 sigma of exact enumeration")
-    # one sweep group (8 runs stacked, as the sweep stacks them): B1's row
-    keep = (ev, concat_run_buffers(bufs[:ev.chunk_queries // SWEEP_Q]))
+    # one sweep group (8 runs stacked, as the sweep stacks them): B1's row;
+    # the qrel and the run's arrays: phase H's service
+    group = concat_run_buffers(bufs[:ev.chunk_queries // SWEEP_Q])
+    keep = {"b1": (ev, group), "data": (qrel, qids, docnos, scores)}
     return {"phase": "F", "runs": SWEEP_K, "queries": SWEEP_Q,
             "docs": PAPER_D, "judged": PAPER_J, "setup_s": setup_s,
             "single_s": single_s, "sharded_s": sharded_s,
@@ -1286,6 +1319,626 @@ def phase_rl(device, seed):
             "fixed_max_abs_reward_diff_vs_cpu": worst}, None
 
 
+# -- phase N: NaN order on the card ------------------------------------------
+
+NAN_SHARE = 0.01  # seeded share of scores set to NaN
+NAN_REL_ROWS = 8  # rows whose relevant documents all turn NaN
+#: the short rows' document counts: below, at and above k = 1,000
+SHORT_COUNTS = (1, 7, 128, 500, 999, 1000, 1500)
+
+
+def _nan_scores(scores, rng, share=NAN_SHARE):
+    out = np.array(scores, dtype=np.float32, copy=True)
+    out[rng.random(out.shape) < share] = np.nan
+    return out
+
+
+def short_buffer(ev, rng, qids, nj=DEEP_J):
+    """Phase C's first queries again with SHORT_COUNTS documents each: the
+    query's own judged documents first (as many as fit), then other
+    vocabulary documents, in a random order; NaN on a few of them, the
+    relevant ones included."""
+    counts = np.array(SHORT_COUNTS[:len(qids)])
+    toks, scores = [], []
+    for q, (qid, c) in enumerate(zip(qids, counts)):
+        first = int(qid[1:]) * nj
+        own = np.searchsorted(ev.vocab, np.char.add(
+            "d", np.arange(first, first + nj).astype(str)))
+        others = rng.choice(np.setdiff1d(np.arange(len(ev.vocab)), own),
+                            max(0, c - nj), replace=False)
+        t = rng.permutation(np.concatenate([own[:c], others]))
+        s = np.round(rng.random(c), 4).astype(np.float32)
+        s[rng.random(c) < 0.2] = np.nan
+        toks.append(t)
+        scores.append(s)
+    return ev.buffer_from_tokens(qids, counts, np.concatenate(toks),
+                                 np.concatenate(scores))
+
+
+def _bits_equal(a, b):
+    import torch
+
+    return torch.equal(a.contiguous().view(torch.int32),
+                       b.contiguous().view(torch.int32))
+
+
+def _topk_exact(scores, k, what):
+    """B2 against its plain version on ``scores``: indices exact, values
+    bit for bit (NaN payloads included); returns the NaN count kept."""
+    import torch
+
+    from repro_torch.kernels import topk as TK
+
+    v, i = TK.topk(scores, k)
+    pv, pi = TK.topk_plain(scores, k)
+    torch.cuda.synchronize()
+    check(torch.equal(i, pi), f"{what}: top-k indices differ from plain")
+    check(_bits_equal(v, pv), f"{what}: top-k values differ from plain")
+    return int(torch.isnan(v).sum())
+
+
+def phase_nan(device, deep, recsys, seed):
+    """NaN scores through the top-k route (B2) and the full sort on phase
+    C's buffer plus short rows; B2 against its plain version on NaN rows;
+    SASRec retrieval with NaN candidate scores against the CPU."""
+    import torch
+
+    from repro_torch.core import compute_measures, concat_run_buffers
+    from repro_torch.kernels import topk as TK
+    from repro_torch.launch.api import get_arch, to_device
+    from repro_torch.models import recsys as R
+
+    ev, buf = deep
+    rng = np.random.default_rng([seed, 17])
+    scores = _nan_scores(buf.scores, rng)
+    rel_rows = rng.choice(len(buf), NAN_REL_ROWS, replace=False)
+    on_rel = np.isin(buf.qidx, rel_rows) & (buf.rel > 0)
+    scores[on_rel] = np.nan
+    nan_buf = buf.with_scores(scores)
+    short = short_buffer(ev, rng, buf.qids[:len(SHORT_COUNTS)])
+    big = concat_run_buffers([nan_buf, short])
+    check(ev._route_topk(big), "NaN batch did not route to top-k")
+
+    zero_launches()
+    t0 = time.perf_counter()
+    routed = ev.evaluate_buffers([nan_buf, short])
+    routed_s = time.perf_counter() - t0
+    launches = read_launches()
+    check(launches["topk"] >= 1, "NaN batch did not launch the top-k kernel")
+
+    # the same buffers through the full sort
+    batch = ev.batch_from_buffer(big)
+    per_query = compute_measures(batch, ev.measures, ev.relevance_level)
+    table = torch.stack([per_query[k][:len(big)] for k in ev.measure_keys]
+                        ).cpu().numpy()
+    del batch, per_query
+    n, worst, at = 0, 0.0, 0
+    for part, res in zip((nan_buf, short), routed):
+        full = {qid: {k: float(table[j, at + i])
+                      for j, k in enumerate(ev.measure_keys)}
+                for i, qid in enumerate(part.qids)}
+        at += len(part)
+        m, w = compare_results(res, full)
+        n, worst = n + m, max(worst, w)
+
+    # B2 against its plain version on the NaN matrix and at [1, 10^6]
+    batch = ev.batch_from_buffer(big, topk_layout=True)
+    k = min(ev._topk_depth, batch.scores.shape[1])
+    scores_m = torch.where(batch.mask, batch.scores, -torch.inf).contiguous()
+    del batch
+    nan_kept = _topk_exact(scores_m, k, f"B2 at {list(scores_m.shape)}")
+    # rows mostly NaN, so that NaNs fill the ends of their top k
+    dense = scores_m[:64].clone()
+    dense[torch.from_numpy(rng.random(tuple(dense.shape)) < 0.99).to(
+        dense.device)] = torch.nan
+    nan_kept_dense = _topk_exact(dense, k, "B2 on rows 99% NaN")
+    check(nan_kept_dense > 0, "no NaN in the top k of rows 99% NaN")
+    del scores_m, dense
+    row = recsys["retrieval_scores"].clone()
+    row[torch.from_numpy(rng.random(row.shape) < NAN_SHARE).to(row.device)] \
+        = torch.nan
+    nan_kept_row = _topk_exact(row, 1000, "B2 at [1, 10^6]")
+    check(nan_kept_row == 0, "NaN entered the top 1,000 of 10^6")
+    del row
+
+    # SASRec retrieval with NaN candidate scores: NaN item embeddings on
+    # 1% of the candidates (none in the user's history), card against CPU
+    model, cfg, args, dev_args = recsys["sasrec"]
+    batch, cand = dev_args[0], dev_args[1]
+    hist = set(np.asarray(args[0]["items"]).reshape(-1).tolist())
+    ids = np.unique(args[1][rng.random(args[1].shape) < NAN_SHARE])
+    ids = torch.from_numpy(ids[~np.isin(ids, list(hist))]).long()
+    saved = model.item_emb.detach()[ids.to(device)].clone()
+    with torch.no_grad():
+        model.item_emb[ids.to(device)] = torch.nan
+    arch = get_arch("sasrec")
+    shape = arch.shapes["retrieval_cand"]
+    try:
+        step = arch.make_step(cfg, shape).step_fn
+        zero_launches()
+        v, i, metrics = step(model, *dev_args)
+        torch.cuda.synchronize()
+        sas_launches = read_launches()
+        check(sas_launches["topk"] == 1,
+              "SASRec retrieval did not launch the top-k kernel once")
+        with torch.inference_mode():
+            full_row = R.sasrec_retrieval_scores(
+                model, {**batch, "candidates": cand}, cfg).contiguous()
+        n_nan = int(torch.isnan(full_row).sum())
+        check(n_nan > 0, "no NaN candidate score")
+        pv, pi = TK.topk_plain(full_row, v.shape[1])
+        check(torch.equal(i, pi) and _bits_equal(v, pv),
+              "SASRec retrieval top-k differs from the plain version")
+        check(not bool(torch.isnan(v).any()), "NaN in SASRec's top 1,000")
+        # the card's in-loop metrics against the CPU's full sort of the
+        # card's scores, and the same step on the CPU with the same weights
+        m_err = _check_metrics(metrics, full_row, args[2],
+                               "SASRec retrieval with NaN")
+        cpu_model = _cpu_copy(model, "sasrec")
+        cv, _, _ = arch.make_step(cfg, shape, device="cpu").step_fn(
+            cpu_model, *to_device(args, "cpu"))
+        del cpu_model
+        check(not bool(torch.isnan(cv).any()), "NaN in the CPU's top 1,000")
+        err = _check_close(v, cv, "SASRec retrieval with NaN, values")
+    finally:
+        with torch.no_grad():
+            model.item_emb[ids.to(device)] = saved
+    return {"phase": "N", "queries": len(buf), "short_rows": len(short),
+            "short_counts": list(SHORT_COUNTS), "nan_share": NAN_SHARE,
+            "nan_scores": int(np.isnan(big.scores).sum()),
+            "nan_on_relevant": int(on_rel.sum()), "topk_depth": k,
+            "routed_eval_s": routed_s, "compared": n,
+            "max_abs_diff_topk_vs_full_sort": worst, "launches": launches,
+            "b2_nan_in_top_k": nan_kept,
+            "b2_nan_in_top_k_rows_99pct_nan": nan_kept_dense,
+            "retrieval_nan_candidates": n_nan,
+            "sasrec_launches": sas_launches,
+            "sasrec_values_max_abs_err_vs_cpu": err,
+            "sasrec_metrics_max_abs_err_vs_cpu": m_err}, None
+
+
+# -- phase H: the paper's surface (baselines, eval arch) and the service -----
+
+#: ``python -m repro.baselines.trec_eval_cli -q -m map -m ndcg`` (the JAX
+#: package's baseline) on the conformance fixtures, recorded once; the
+#: port's baseline must print these bytes
+BASELINE_GOLDEN = ("map\tq1\t0.5000\nndcg\tq1\t0.7763\n"
+                   "map\tq2\t0.5000\nndcg\tq2\t0.6309\n"
+                   "map\tall\t0.5000\nndcg\tall\t0.7036\n")
+#: RQ1 (``benchmarks/bench_rq1.py``'s grid) and RQ2 (``bench_rq2.py``'s
+#: depths), the paper's measures and repetitions
+RQ1_QUERIES = (1, 10, 100, 1000)
+RQ1_DOCS = (1, 10, 100, 1000)
+RQ_MEASURES = ("map", "ndcg")
+RQ1_REPS = 3
+RQ2_DEPTHS = (1, 2, 3, 5, 10, 31, 100, 316, 1000, 3162, 10_000)
+RQ2_REPS = 5
+CHILD_TIMEOUT = 300  # seconds for any child process of phase H
+#: the service: concurrent requests, runs compared, the depth-bounded
+#: collection (queries, docs, judged) and its measures
+SERVE_CONCURRENT = 64
+COMPARE_RUNS = 8
+SERVE_DEEP = (64, 2000, 128)
+SERVE_DEEP_MEASURES = ("P_10", "ndcg_cut_10", "recall_10", "success_1")
+SERVE_TIMEOUT = 300  # seconds: every client call and every wait on it
+#: the service's coalescing window.  A Robust04-sized request is ~1.5 MB
+#: of JSON that the client encodes and the server decodes on one thread
+#: each, tens of ms apiece: with the default 2 ms every request arrives
+#: alone (one backend call each, measured on the card).
+SERVE_WINDOW_S = 0.25
+
+
+def _src_env():
+    env = dict(os.environ)
+    src = os.path.join(ROOT, "src")
+    env["PYTHONPATH"] = src + (os.pathsep + env["PYTHONPATH"]
+                               if env.get("PYTHONPATH") else "")
+    return env
+
+
+def _child(args, env, **kw):
+    return subprocess.run([sys.executable, *args], capture_output=True,
+                          text=True, env=env, timeout=CHILD_TIMEOUT,
+                          check=True, **kw)
+
+
+def _mean_s(fn, reps, warmup):
+    """Mean wall seconds of ``fn`` over ``reps`` after ``warmup`` calls
+    (``benchmarks/common.py::time_call``)."""
+    for _ in range(warmup):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps
+
+
+def child_start(env):
+    """Seconds for a bare interpreter, and for one that imports the
+    baseline CLI and exits (medians of 3); the modules that import pulls
+    in, from ``-X importtime``, must hold no torch, numpy or jax."""
+    def median(args):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            _child(args, env)
+            times.append(time.perf_counter() - t0)
+        return float(np.median(times))
+
+    mod = "repro_torch.baselines.trec_eval_cli"
+    trace = _child(["-X", "importtime", "-c", f"import {mod}"], env).stderr
+    names = [ln.rsplit("|", 1)[-1].strip() for ln in trace.splitlines()
+             if ln.startswith("import time:") and "|" in ln]
+    heavy = sorted({n.split(".")[0] for n in names}
+                   & {"torch", "numpy", "jax"})
+    check(not heavy, f"the baseline child imports {heavy}")
+    own = [ln for ln in trace.splitlines() if ln.rstrip().endswith(mod)]
+    return {"bare_python_s": median(["-c", "pass"]),
+            "import_cli_s": median(["-c", f"import {mod}"]),
+            "cli_import_cumulative_us": int(own[0].split("|")[1]),
+            "modules_imported": len(names)}
+
+
+def phase_baselines(device):
+    """The baseline CLI against its recorded output; RQ1 (in-process on the
+    card against serialize-invoke-parse) and RQ2 (against native-Python
+    NDCG), with the child's start-up."""
+    import tempfile
+
+    from repro_torch.baselines import native_ndcg, workflow
+    from repro_torch.core import RelevanceEvaluator
+    from repro_torch.data.synthetic_ir import synthesize_run
+
+    env = _src_env()
+    out = _child(["-m", "repro_torch.baselines.trec_eval_cli", "-q", "-m",
+                  "map", "-m", "ndcg",
+                  os.path.join(FIXTURES, "conformance.qrel"),
+                  os.path.join(FIXTURES, "conformance.run")], env).stdout
+    check(out == BASELINE_GOLDEN,
+          "the baseline CLI's output differs from the JAX baseline's")
+    child = child_start(env)
+
+    rq1 = []
+    with tempfile.TemporaryDirectory(prefix="rq1_") as workdir:
+        for nq in RQ1_QUERIES:
+            for nd in RQ1_DOCS:
+                run, qrel = synthesize_run(nq, nd)
+                t_in = _mean_s(lambda: RelevanceEvaluator(
+                    qrel, RQ_MEASURES, device=device).evaluate(run),
+                    RQ1_REPS, 1)
+                t_sip = _mean_s(lambda: workflow.serialize_invoke_parse(
+                    run, qrel, workdir, RQ_MEASURES,
+                    timeout=CHILD_TIMEOUT), RQ1_REPS, 0)
+                # child_start_share: the part of serialize-invoke-parse
+                # that a child importing the CLI takes before any work
+                rq1.append({"n_queries": nq, "n_docs": nd,
+                            "inprocess_s": t_in, "sip_s": t_sip,
+                            "speedup": t_sip / t_in,
+                            "child_start_share": child["import_cli_s"]
+                            / t_sip})
+    rq2 = []
+    for nd in RQ2_DEPTHS:
+        run, qrel = synthesize_run(1, nd)
+        docs, rels = run["q0"], qrel["q0"]
+        ev = RelevanceEvaluator(qrel, ("ndcg",), device=device)
+        ours = ev.evaluate(run)["q0"]["ndcg"]
+        native = native_ndcg.ndcg(docs, rels)
+        check(abs(ours - native) <= TOL + TOL * abs(native),
+              f"RQ2 at {nd} docs: ndcg {ours} vs native {native}")
+        t_ours = _mean_s(lambda: ev.evaluate(run), RQ2_REPS, 1)
+        t_native = _mean_s(lambda: native_ndcg.ndcg(docs, rels),
+                           RQ2_REPS, 1)
+        rq2.append({"n_docs": nd, "ours_s": t_ours, "native_s": t_native,
+                    "speedup": t_native / t_ours,
+                    "abs_diff": abs(ours - native)})
+    return {"phase": "H-baselines", "cli": "byte-match", "child": child,
+            "rq1_measures": list(RQ_MEASURES), "rq1_reps": RQ1_REPS,
+            "rq1": rq1, "rq2_reps": RQ2_REPS, "rq2": rq2}, None
+
+
+def fit_to_spec(batch, specs):
+    """``batch`` cut to the step's spec shapes: only padding may go (rows
+    past the real queries, columns past every real document or ideal
+    gain)."""
+    q, d = specs.scores.shape
+    j = specs.ideal_rel.shape[1]
+    check(batch.scores.shape[0] >= q and batch.scores.shape[1] >= d
+          and batch.ideal_rel.shape[1] >= j, "batch smaller than the spec")
+    check(not bool(batch.query_mask[q:].any())
+          and not bool(batch.mask[:, d:].any())
+          and not bool(batch.ideal_rel[:, j:].any()),
+          "cutting the batch to the spec would drop real entries")
+
+    def cut(name, f):
+        if f.dim() == 1:
+            return f[:q]
+        return (f[:q, :j] if name == "ideal_rel" else f[:q, :d]).contiguous()
+
+    return type(batch)(*(cut(n, f) for n, f in zip(batch._fields, batch)))
+
+
+def _timed_step(step, batch):
+    """(result, median ms of 3 calls after one warm-up, peak device bytes
+    above what was allocated before)."""
+    import torch
+
+    out = step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    times = []
+    for _ in range(3):
+        out, s = _synced(lambda: step(batch))
+        times.append(s * 1e3)
+    return (out, float(np.median(times)),
+            torch.cuda.max_memory_allocated() - base)
+
+
+def phase_arch(device, paper, deep):
+    """``get_arch("pytrec-eval")`` at its two shapes, both engines, on
+    phase B's and phase C's data: the engines agree with each other and
+    with the mean of ``evaluate_buffer``'s per-query results."""
+    import dataclasses
+
+    from repro_torch.core import RelevanceEvaluator
+    from repro_torch.core import ranked as RK
+    from repro_torch.launch.api import get_arch
+
+    arch = get_arch("pytrec-eval")
+    out = {"phase": "H-arch", "shapes": {}}
+    for shape_name, (ev, buf) in (("eval_10k_1k", paper),
+                                  ("eval_1k_64k", deep)):
+        shape = arch.shapes[shape_name]
+        # phase B's evaluator computes the arch's measures (PAPER_MEASURES);
+        # phase C's does not, so its qrel (the same vocabulary) gets one
+        full = ev if shape_name == "eval_10k_1k" else RelevanceEvaluator(
+            ev._qrel, PAPER_MEASURES, device=device)
+        check(np.array_equal(full.vocab, ev.vocab),
+              "the evaluator's vocabulary differs")
+        per_query = full.evaluate_buffer(buf)
+        bundles = {e: arch.make_step(dataclasses.replace(
+            arch.make_config(False), engine=e), shape)
+            for e in ("sorted", "ranked")}
+        batch = fit_to_spec(full.batch_from_buffer(buf),
+                            bundles["sorted"].arg_specs[0])
+        res, row = {}, {}
+        for engine, bundle in bundles.items():
+            specs = bundle.arg_specs[0]
+            arg = (RK.from_eval_batch(batch, specs.judged_scores.shape[1])
+                   if engine == "ranked" else batch)
+            for name, spec, f in zip(specs._fields, specs, arg):
+                check((tuple(f.shape), f.dtype) == tuple(spec),
+                      f"{shape_name} {engine}: {name} {tuple(f.shape)} "
+                      f"{f.dtype} is not the step's {spec}")
+            agg, ms, peak = _timed_step(bundle.step_fn, arg)
+            res[engine] = {k: float(v) for k, v in agg.items()}
+            row[engine] = {"step_ms": ms, "peak_extra_device_gb": peak / 1e9}
+            del arg
+        keys = list(res["sorted"])
+        worst = 0.0
+        for k in keys:
+            a, b = res["ranked"][k], res["sorted"][k]
+            worst = max(worst, abs(a - b))
+            if is_exact(k):
+                check(a == b, f"{shape_name}: {k} ranked {a} != sorted {b}")
+            else:
+                check(abs(a - b) <= TOL + TOL * abs(b),
+                      f"{shape_name}: {k} ranked {a} vs sorted {b}")
+        mean_err = 0.0
+        for k in keys:
+            m = float(np.mean([r[k] for r in per_query.values()]))
+            mean_err = max(mean_err, abs(res["sorted"][k] - m))
+            check(abs(res["sorted"][k] - m) <= TOL + TOL * abs(m),
+                  f"{shape_name}: {k} step {res['sorted'][k]} vs "
+                  f"evaluate_buffer mean {m}")
+        specs = bundles["sorted"].arg_specs[0]
+        row.update({"shape": list(specs.scores.shape)
+                    + [specs.ideal_rel.shape[1]],
+                    "ranked_vs_sorted_max_abs_diff": worst,
+                    "sorted_vs_evaluate_buffer_mean_max_abs_diff": mean_err,
+                    "map": res["sorted"]["map"]})
+        out["shapes"][shape_name] = row
+        del batch
+    return out, None
+
+
+def _run_dict(qids, docnos, scores):
+    """Flat (qid, docno, score) arrays as a ``{qid: {docno: score}}`` run."""
+    run = {}
+    for q, d, sc in zip(qids.tolist(), docnos.tolist(), scores.tolist()):
+        run.setdefault(q, {})[d] = sc
+    return run
+
+
+def _tokens(ev, qids, docnos):
+    """The tokens payload of a query-major run: its queries in order, their
+    document counts, and each docno's index in the evaluator's
+    vocabulary (-1 where it is not judged)."""
+    starts = np.flatnonzero(np.r_[True, qids[1:] != qids[:-1]])
+    q_list = qids[starts].tolist()
+    check(len(set(q_list)) == len(q_list), "run is not query-major")
+    counts = np.diff(np.r_[starts, len(qids)]).tolist()
+    tok = np.searchsorted(ev.vocab, docnos)
+    hit = np.take(ev.vocab, np.minimum(tok, len(ev.vocab) - 1)) == docnos
+    return q_list, counts, np.where(hit, tok, -1)
+
+
+def _serve_tcp(device, sweep_data, rng, seed):
+    """The TCP part of phase H: ServerThread on ``device`` and the port's
+    EvalClient.  Returns the phase's numbers; raises on any mismatch."""
+    from repro_torch import stats as S
+    from repro_torch.client import EvalClient
+    from repro_torch.core import RelevanceEvaluator, evaluate_sweep
+    from repro_torch.distributed import ShardedEvaluator
+    from repro_torch.serve.testing import ServerThread
+
+    qrel, qids, docnos, scores = sweep_data
+    run = _run_dict(qids, docnos, scores)
+    dqrel, dqids, ddocnos, dscores = paper_data(rng, *SERVE_DEEP)
+    measures = {"single": PAPER_MEASURES, "sharded": PAPER_MEASURES,
+                "deep": SERVE_DEEP_MEASURES}
+    qrels = {"single": qrel, "sharded": qrel, "deep": dqrel}
+    runs = {"single": run, "sharded": run,
+            "deep": _run_dict(dqids, ddocnos, dscores)}
+    service_kw = {"backend": "single", "device": device,
+                  "window": SERVE_WINDOW_S}
+    with ServerThread(service_kw=service_kw) as srv, \
+            EvalClient(srv.host, srv.port, timeout=SERVE_TIMEOUT) as client:
+        t0 = time.perf_counter()
+        n_docs = {}
+        for name in ("single", "sharded", "deep"):
+            info = client.register_qrel(
+                name, qrels[name], list(measures[name]),
+                backend="sharded" if name == "sharded" else None)
+            check(info["backend"] == ("sharded" if name == "sharded"
+                                      else "single"),
+                  f"collection {name} got backend {info['backend']}")
+            n_docs[name] = client.register_run(name, "base",
+                                               run=runs[name])["n_docs"]
+        register_s = time.perf_counter() - t0
+
+        # SERVE_CONCURRENT re-scored requests, round robin over the three
+        names = [("single", "sharded", "deep")[i % 3]
+                 for i in range(SERVE_CONCURRENT)]
+        fresh = [np.round(rng.random(n_docs[n]), 3) for n in names]
+        before = srv.stats()
+        done = [0.0] * len(names)
+        start, futures = [], []
+        zero_launches()
+        for j, (name, sc) in enumerate(zip(names, fresh)):
+            start.append(time.perf_counter())
+            fut = client.submit(name, run_ref="base", scores=sc)
+            fut.add_done_callback(
+                lambda _, j=j: done.__setitem__(j, time.perf_counter()))
+            futures.append(fut)
+        results = [f.result(SERVE_TIMEOUT) for f in futures]
+        launches = read_launches()
+        after = srv.stats()
+
+        # the compare: COMPARE_RUNS runs registered as token payloads
+        ev = RelevanceEvaluator(qrel, PAPER_MEASURES, device=device)
+        q_list, counts, tok = _tokens(ev, qids, docnos)
+        cmp_scores = [np.round(rng.random(len(tok)), 3)
+                      for _ in range(COMPARE_RUNS)]
+        refs = [f"c{k}" for k in range(COMPARE_RUNS)]
+        for ref, sc in zip(refs, cmp_scores):
+            client.register_run("single", ref, tokens={
+                "qids": q_list, "counts": counts, "tokens": tok.tolist(),
+                "scores": sc.tolist()})
+        t0 = time.perf_counter()
+        report = client.compare("single", run_refs=refs, measure="map",
+                                tests=["t", "permutation"],
+                                n_permutations=SWEEP_PERMUTATIONS, seed=seed)
+        compare_s = time.perf_counter() - t0
+
+    check(launches["fused_measures"] >= 1,
+          "the sharded collection did not launch the fused kernel")
+    check(launches["topk"] >= 1,
+          "the depth-bounded collection did not launch top-k")
+    calls = after["backend_calls"] - before["backend_calls"]
+    requests = after["requests"] - before["requests"]
+    check(requests == SERVE_CONCURRENT, f"{requests} requests seen")
+    check(calls < SERVE_CONCURRENT, f"{calls} backend calls for "
+          f"{SERVE_CONCURRENT} requests: no coalescing")
+    # each answer against the same evaluation in process, on the card
+    direct = {}
+    for name in ("single", "sharded", "deep"):
+        dev_ev = RelevanceEvaluator(qrels[name], measures[name],
+                                    device=device)
+        direct[name] = (dev_ev, dev_ev.tokenize_run(runs[name]),
+                        ShardedEvaluator(dev_ev) if name == "sharded"
+                        else None)
+    for j, (name, sc, res) in enumerate(zip(names, fresh, results)):
+        dev_ev, buf, sev = direct[name]
+        want = (sev.evaluate_buffer(buf, scores=sc).per_query if sev
+                else dev_ev.evaluate_buffer(buf, scores=sc))
+        check(res.per_query == want,
+              f"request {j} ({name}) differs from a direct evaluate_buffer")
+    sweep = evaluate_sweep(ev, [ev.buffer_from_tokens(q_list, counts, tok, sc)
+                                for sc in cmp_scores], backend="single")
+    want = S.significance_report(
+        np.ascontiguousarray(sweep.measure("map")),
+        tests=("t", "permutation"), n_permutations=SWEEP_PERMUTATIONS,
+        seed=seed, device=device)
+    check(report["qids"] == list(sweep.qids), "compare: query lists differ")
+    for key, v in want.items():
+        check(np.array_equal(np.asarray(report[key], np.float32),
+                             np.asarray(v, np.float32)),
+              f"compare: {key} differs from the in-process report")
+    ms = (np.array(done) - np.array(start)) * 1e3
+    wall = max(done) - min(start)
+    return {
+        "collections": {n: {"measures": list(measures[n]),
+                            "docs_per_request": n_docs[n]}
+                        for n in measures},
+        "register_s": register_s,
+        "p50_ms": float(np.percentile(ms, 50)),
+        "p99_ms": float(np.percentile(ms, 99)), "max_ms": float(ms.max()),
+        "requests_per_s": SERVE_CONCURRENT / wall,
+        "docs_per_s": sum(len(sc) for sc in fresh) / wall,
+        "backend_calls": calls,
+        "flushes": after["flushes"] - before["flushes"],
+        "peak_in_flight": after["peak_in_flight"], "launches": launches,
+        "bit_identical_to_evaluate_buffer": SERVE_CONCURRENT,
+        "compare_runs": COMPARE_RUNS, "compare_s": compare_s,
+        "compare_equals_in_process": True}
+
+
+def phase_service(device, sweep_data, seed):
+    """The evaluation service on the card over TCP, driven by the port's
+    client: three collections (Robust04-sized on ``"single"`` and on
+    ``"sharded"``, a depth-bounded one), SERVE_CONCURRENT concurrent
+    re-scored requests bit-identical to direct evaluations, one
+    ``compare`` of COMPARE_RUNS runs equal to the in-process statistics;
+    and ``python -m repro_torch.serve --device <device>`` over stdio, its
+    ``map`` equal to the CLI's."""
+    from repro_torch import cli
+    from repro_torch.client import EvalClient
+    from repro_torch.core import RelevanceEvaluator, trec
+
+    rng = np.random.default_rng([seed, 29])
+    out = {"phase": "H-service", "concurrent_requests": SERVE_CONCURRENT,
+           "window_s": SERVE_WINDOW_S}
+    qrel_path = os.path.join(FIXTURES, "conformance.qrel")
+    run_path = os.path.join(FIXTURES, "conformance.run")
+    conf_run = trec.load_run(run_path)
+    # the stdio server starts first: its process start (torch, the card)
+    # overlaps the TCP part
+    old = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = _src_env()["PYTHONPATH"]
+    try:
+        t0 = time.perf_counter()
+        stdio_client = EvalClient.spawn_stdio(
+            [sys.executable, "-m", "repro_torch.serve", "--device", device,
+             "--qrel", qrel_path, "-m", "map"], timeout=SERVE_TIMEOUT)
+    finally:
+        if old is None:
+            os.environ.pop("PYTHONPATH", None)
+        else:
+            os.environ["PYTHONPATH"] = old
+    with stdio_client:
+        out.update(_serve_tcp(device, sweep_data, rng, seed))
+        stdio = stdio_client.evaluate("default", run=conf_run).per_query
+        out["stdio_s"] = time.perf_counter() - t0
+
+    direct = RelevanceEvaluator(trec.load_qrel(qrel_path), ["map"],
+                                device=device).evaluate(conf_run)
+    check({q: r["map"] for q, r in stdio.items()}
+          == {q: r["map"] for q, r in direct.items()},
+          "stdio server's map differs from the in-process evaluator's")
+    # the CLI's per-query map lines (python -m repro_torch -q -m map)
+    text = io.StringIO()
+    check(cli.main(["--device", device, "-q", "-m", "map", qrel_path,
+                    run_path], out=text) == 0, "the CLI failed")
+    cli_map = {p[1]: p[2] for p in map(str.split,
+                                       text.getvalue().splitlines())
+               if p[0] == "map" and p[1] != "all"}
+    check({q: f"{r['map']:.4f}" for q, r in stdio.items()} == cli_map,
+          "stdio server's map differs from the CLI's")
+    out["stdio_map"] = {q: r["map"] for q, r in stdio.items()}
+    return out, None
+
+
 # -- entry point --------------------------------------------------------------
 
 
@@ -1341,6 +1994,10 @@ def main(argv=None) -> int:
     out_f, sweep = timed(phase_sweep, "cuda", rng, args.seed)
     timed(phase_ranked, paper)
     timed(phase_rl, "cuda", args.seed)
+    timed(phase_nan, "cuda", deep, recsys, args.seed)
+    timed(phase_baselines, "cuda")
+    timed(phase_arch, "cuda", paper, deep)
+    timed(phase_service, "cuda", sweep["data"], args.seed)
     launches = {"fused_measures": out_b["launches"]["fused_measures"],
                 "fused_measures_sweep": out_f["launches"]["fused_measures"],
                 "fused_measures_deep":

@@ -7,28 +7,40 @@ Public API mirrors pytrec_eval:
 * ``registry`` — the declarative measure table (both dialects).
 * ``measures`` / ``streaming`` — batched device entry points.
 * :func:`evaluate_sweep` — K runs against one qrel in one batched sweep.
+
+The names below resolve on first use (PEP 562), so importing one light
+submodule — ``repro_torch.core.trec`` for the trec_eval baseline's child
+process — does not import torch.
 """
 
-from repro_torch.core.evaluator import (RelevanceEvaluator, RunBuffer,
-                                        aggregate_results, concat_run_buffers)
-from repro_torch.core.measures import (
-    AGGREGATE_ONLY_MEASURES,
-    DEFAULT_CUTOFFS,
-    GM_MIN,
-    SUPPORTED_MEASURES as supported_measures,
-    EvalBatch,
-    batch_from_dense,
-    batch_from_flat,
-    batch_from_numpy,
-    compute_measures,
-    compute_measures_topk,
-    finalize_aggregates,
-    measure_keys,
-    parse_measures,
-)
-from repro_torch.core.registry import MeasureError, MeasureSpec, REGISTRY
-from repro_torch.core.sweep import SweepResult, evaluate_sweep
-from repro_torch.core import registry, streaming, trec, sorting
+import importlib
+
+#: exported name -> (submodule, attribute in it)
+_EXPORTS = {
+    "RelevanceEvaluator": ("evaluator", "RelevanceEvaluator"),
+    "RunBuffer": ("evaluator", "RunBuffer"),
+    "aggregate_results": ("evaluator", "aggregate_results"),
+    "concat_run_buffers": ("evaluator", "concat_run_buffers"),
+    "AGGREGATE_ONLY_MEASURES": ("measures", "AGGREGATE_ONLY_MEASURES"),
+    "DEFAULT_CUTOFFS": ("measures", "DEFAULT_CUTOFFS"),
+    "GM_MIN": ("measures", "GM_MIN"),
+    "supported_measures": ("measures", "SUPPORTED_MEASURES"),
+    "EvalBatch": ("measures", "EvalBatch"),
+    "batch_from_dense": ("measures", "batch_from_dense"),
+    "batch_from_flat": ("measures", "batch_from_flat"),
+    "batch_from_numpy": ("measures", "batch_from_numpy"),
+    "compute_measures": ("measures", "compute_measures"),
+    "compute_measures_topk": ("measures", "compute_measures_topk"),
+    "finalize_aggregates": ("measures", "finalize_aggregates"),
+    "measure_keys": ("measures", "measure_keys"),
+    "parse_measures": ("measures", "parse_measures"),
+    "MeasureError": ("registry", "MeasureError"),
+    "MeasureSpec": ("registry", "MeasureSpec"),
+    "REGISTRY": ("registry", "REGISTRY"),
+    "SweepResult": ("sweep", "SweepResult"),
+    "evaluate_sweep": ("sweep", "evaluate_sweep"),
+}
+_SUBMODULES = ("registry", "streaming", "trec", "sorting")
 
 __all__ = [
     "RelevanceEvaluator",
@@ -58,3 +70,15 @@ __all__ = [
     "trec",
     "sorting",
 ]
+
+
+def __getattr__(name):
+    if name in _EXPORTS:
+        module, attr = _EXPORTS[name]
+        value = getattr(importlib.import_module(f"{__name__}.{module}"), attr)
+    elif name in _SUBMODULES:
+        value = importlib.import_module(f"{__name__}.{name}")
+    else:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    globals()[name] = value
+    return value

@@ -529,8 +529,13 @@ class RelevanceEvaluator:
         Yes iff every requested measure is depth-bounded (ROADMAP item 2:
         ``*_cut`` / ``@k`` measures stop sorting the full document axis) and
         the padded document axis is wide enough that ranking only the top-k
-        prefix beats the full multi-key sort.  Results are bit-identical
-        either way (parity-tested in tests/test_measures.py).
+        prefix beats the full multi-key sort.  Both routes rank alike:
+        score descending, ties to the lower tiebreak, and every NaN score
+        after every number and after the top-k layout's -inf padding, as
+        the full sort puts it after the padding.  So the selected prefix is
+        the full sort's first k rows and the values are the same either way
+        (parity-tested against the JAX full-sort route in
+        tests/test_torch_evaluator.py, NaN and +-inf scores included).
         """
         if self._topk_depth is None or not len(buf):
             return False

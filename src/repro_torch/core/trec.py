@@ -1,4 +1,4 @@
-"""TREC run / qrel file formats (numpy only; the port's own copy).
+"""TREC run / qrel file formats (the port's own copy).
 
 These exist for interoperability *and* as the serialization layer of the
 serialize-invoke-parse baseline (the workflow the paper measures against).
@@ -6,13 +6,18 @@ serialize-invoke-parse baseline (the workflow the paper measures against).
 Formats (whitespace separated):
   qrel:  ``qid  iter  docno  rel``
   run:   ``qid  Q0    docno  rank  score  tag``
+
+numpy is imported only by the two array parsers, so the dict parsers and
+writers load in a process that imports no numerical library (the
+trec_eval baseline's child).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, TextIO, Tuple
+from typing import TYPE_CHECKING, Dict, Mapping, TextIO, Tuple
 
-import numpy as np
+if TYPE_CHECKING:
+    import numpy as np
 
 
 def parse_qrel(fh: TextIO) -> Dict[str, Dict[str, int]]:
@@ -70,6 +75,8 @@ def parse_run_arrays(fh: TextIO) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         qids.append(parts[0])
         docnos.append(parts[2])
         scores.append(parts[4])
+    import numpy as np
+
     return (np.array(qids), np.array(docnos),
             np.array(scores, dtype=np.float32))
 
@@ -86,6 +93,8 @@ def parse_qrel_arrays(fh: TextIO) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         qids.append(parts[0])
         docnos.append(parts[2])
         rels.append(int(parts[3]))
+    import numpy as np
+
     return (np.array(qids), np.array(docnos),
             np.array(rels, dtype=np.int32))
 

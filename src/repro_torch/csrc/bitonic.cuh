@@ -5,7 +5,10 @@
 // Total order ("precedes"): a before b iff a.value > b.value, ties broken
 // by the smaller index -- jax.lax.top_k's rule, and trec_eval's rule once
 // documents sit at column == tiebreak rank.  Values compare with > and ==,
-// so -0.0 and +0.0 tie and the index decides.  The network sorts 64-bit
+// so -0.0 and +0.0 tie and the index decides.  Every NaN, of either sign and
+// any payload, follows every number (-inf included) and NaNs tie among
+// themselves: the full sort's order (core/sorting.py::sort_key puts NaN
+// after the -inf padding of the top-k layout).  The network sorts 64-bit
 // keys whose unsigned order is that order (make_key): one compare and one
 // 8-byte move per element instead of two.  The value's bits are read back
 // from the scores by index, so -0.0 stays -0.0.  Lengths are powers of two.
@@ -34,13 +37,20 @@ BT_HD uint32_t float_bits(float v) {
 #endif
 }
 
+// High words: a number's is at least 0x007fffff (make_key's word for
+// -inf); every NaN gets kNanHigh, below it; init_key's "no element yet"
+// sentinels get kEmptyHigh, below NaN.
+constexpr uint32_t kNanHigh = 1u;
+constexpr uint32_t kEmptyHigh = 0u;
+
 // (v, i) -> a key whose unsigned order is that order, for 0 <= i < 2^31:
 // the high word orders floats (sign flipped for positives, every bit for
-// negatives; -0.0 as +0.0), the low word is 2^32 - 1 - i.  Key 0 follows
-// every such key.
+// negatives; -0.0 as +0.0; NaN as kNanHigh), the low word is
+// 2^32 - 1 - i.  Key 0 follows every such key.
 BT_HD Key make_key(float v, int i) {
   uint32_t u = v == 0.0f ? 0u : float_bits(v);
   u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  u = v != v ? kNanHigh : u;
   return (static_cast<Key>(u) << 32) |
          (0xffffffffu - static_cast<uint32_t>(i));
 }
@@ -93,12 +103,13 @@ BT_HD void sort_desc(const Team& team, Key* key, int n) {
 // block; host_check.cpp's is one thread that runs every loop in order, so
 // the host runs these very functions.
 
-// Entry p < k of `kept` before any element arrived: (-inf, d + p), after
-// every real element of a row of d (d + k2 < 2^31).  Rows shorter than k
-// come back with these: -inf and indices >= d.  Key 0 pads the final sort.
+// Entry p < k of `kept` before any element arrived: (kEmptyHigh, d + p),
+// after every real element of a row of d, NaN included (d + k2 < 2^31), so
+// any element is admitted while fewer than k have arrived.  Rows shorter
+// than k come back with these: -inf values and indices >= d.  Key 0 pads
+// the final sort.
 BT_HD Key init_key(int d, int p) {
-  const uint32_t neg_inf_high = 0x007fffffu;  // make_key's word for -inf
-  return (static_cast<Key>(neg_inf_high) << 32) |
+  return (static_cast<Key>(kEmptyHigh) << 32) |
          (0xffffffffu - static_cast<uint32_t>(d + p));
 }
 

@@ -8,6 +8,9 @@
 //   host_check topk Q D K       < scores [Q,D] f32
 //                               > values [Q,K] f32, indices [Q,K] i32
 //   host_check topk_split Q D K S STAGE   (the same streams)
+//   host_check keys N           < scores [N] f32
+//                               > make_key(score i, i) [N], then
+//                                 init_key(N, 0) (u64)
 //
 // topk is the top-k kernel's one-pass launch; topk_split cuts each row
 // into S chunks (pass 1) and merges their top k (pass 2), with a staging
@@ -354,11 +357,22 @@ void write_all(const std::vector<T>& buf) {
 }  // namespace
 
 int main(int argc, char** argv) {
+  if (argc == 3 && strcmp(argv[1], "keys") == 0) {
+    const int n = atoi(argv[2]);
+    std::vector<float> scores(n);
+    std::vector<bt::Key> keys(static_cast<size_t>(n) + 1);
+    read_all(scores);
+    for (int i = 0; i < n; ++i) keys[i] = bt::make_key(scores[i], i);
+    keys[n] = bt::init_key(n, 0);
+    write_all(keys);
+    return 0;
+  }
   const bool split = argc == 7 && strcmp(argv[1], "topk_split") == 0;
   if (argc != 5 && !split) {
     fprintf(stderr,
             "usage: host_check fused|topk Q D LEVEL|K\n"
-            "       host_check topk_split Q D K S STAGE\n");
+            "       host_check topk_split Q D K S STAGE\n"
+            "       host_check keys N\n");
     return 2;
   }
   const int q = atoi(argv[2]);

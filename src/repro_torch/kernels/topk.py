@@ -8,8 +8,13 @@ with radix selects, and bitonic-sorts the final k (padded to
 the card, each row is cut into S chunks: pass 1 writes every chunk's
 top-k keys to scratch ``[Q, S, k]``, pass 2 merges them (:func:`splits`).
 Order: value descending, ties to the lower column (``jax.lax.top_k``'s
-rule).  Rows shorter than k come back padded with -inf and out-of-range
-indices (>= D), as from the Pallas kernel.
+rule), and every NaN, whatever its sign or payload, after every number
+(-inf included), NaNs among themselves by column.  That is the full sort's
+order (``core.sorting.sort_key``: NaN after the -inf padding of the top-k
+layout), so the depth-bounded route ranks NaN scores as the full-sort
+route does; the JAX Pallas kernel has no order for NaN.  Rows shorter
+than k come back padded with -inf and out-of-range indices (>= D), as from
+the Pallas kernel.
 
 :func:`topk` launches the kernel for a CUDA tensor and uses
 :func:`topk_plain` only for a CPU tensor.
@@ -62,12 +67,18 @@ def _sm_count(index: int) -> int:
 def topk_plain(scores: torch.Tensor, k: int):
     """Top-k (values, indices) of each row by a stable descending sort.
 
-    ``-0.0`` is ordered as ``+0.0`` (the kernel's ``==`` tie), and rows
-    shorter than k are padded with -inf values and zero indices.
+    ``-0.0`` is ordered as ``+0.0`` (the kernel's ``==`` tie), every NaN
+    after every number (a second stable sort on the NaN flag; ``torch.sort``
+    alone puts NaN first), and rows shorter than k are padded with -inf
+    values and zero indices.
     """
     q, d = scores.shape
-    key = torch.where(scores == 0, 0.0, scores)
+    nan = torch.isnan(scores)
+    key = torch.where(scores == 0, 0.0, scores).masked_fill(nan, -torch.inf)
     order = torch.sort(key, dim=-1, descending=True, stable=True).indices
+    last = torch.sort(torch.gather(nan, -1, order).to(torch.uint8), dim=-1,
+                      stable=True).indices
+    order = torch.gather(order, -1, last)
     idx = order[:, :k].to(torch.int32)
     vals = torch.gather(scores, -1, order[:, :k])
     if k > d:

@@ -3,7 +3,8 @@
 The counterpart of ``repro.launch.api``.  Each ``configs/<id>.py`` exposes
 ``ARCH: ArchDef``.  An ArchDef knows how to build its full (paper-exact)
 and smoke (reduced) model configs, and how to build the step function of
-each of its shapes on one device.  ``list_archs`` covers only the archs
+each of its shapes on one device: the four recsys archs and the paper's
+own evaluator (``pytrec-eval``, family ``eval``).  ``list_archs`` covers only the archs
 the port has.
 """
 
@@ -53,7 +54,7 @@ class StepBundle:
 @dataclasses.dataclass
 class ArchDef:
     name: str
-    family: str  # recsys (lm and gnn are not ported yet)
+    family: str  # recsys | eval (lm and gnn are not ported yet)
     shapes: Dict[str, ShapeSpec]
     make_config: Callable[[bool], Any]  # (smoke: bool) -> model config
     # (cfg, shape, device=None) -> StepBundle; None → CUDA
@@ -70,22 +71,23 @@ def register(arch: ArchDef) -> ArchDef:
 
 
 def get_arch(name: str) -> ArchDef:
-    if not _REGISTRY:
-        _load_all()
+    _load_all()
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]
 
 
 def list_archs():
-    if not _REGISTRY:
-        _load_all()
+    _load_all()
     return sorted(_REGISTRY)
 
 
 def _load_all() -> None:
-    # Import for side effect: each module registers its ARCH.
-    from repro_torch.configs import autoint, mind, sasrec, xdeepfm  # noqa
+    # Import for side effect: each module registers its ARCH.  Always run
+    # (a module imported directly registers only itself; a repeated
+    # import is a dictionary lookup).
+    from repro_torch.configs import (autoint, mind, pytrec_paper,  # noqa
+                                     sasrec, xdeepfm)
 
 
 _NP_TO_TORCH = {np.dtype(np.int32): torch.int32,

@@ -97,8 +97,8 @@ def recsys_step_bundle(kind: str, cfg, shape: ShapeSpec,
 
     if shape.kind == "train":
         raise NotImplementedError(
-            "recsys training is not ported yet (ROADMAP Queue A item 11: "
-            "recsys training — optimizer, gradients through the "
+            "recsys training is not ported yet (ROADMAP Queue A, "
+            "\"Recsys training\": optimizer, gradients through the "
             "EmbeddingBag kernel)")
 
     if shape.kind == "serve":

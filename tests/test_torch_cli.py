@@ -8,6 +8,7 @@ unimportable, which proves the port never needs it.
 """
 
 import io
+import json
 import os
 import subprocess
 import sys
@@ -92,11 +93,27 @@ def test_cli_tables_match_jax_cli():
     assert cli.AGGREGATE_ONLY == jax_cli.AGGREGATE_ONLY
 
 
+def _without_jax(module, argv):
+    """``python -c`` code running ``python -m <module> <argv>`` with
+    ``jax`` blocked in ``sys.modules``."""
+    return ("import runpy, sys\n"
+            "sys.modules['jax'] = None\n"
+            f"sys.argv = [{module!r}, *{list(argv)!r}]\n"
+            "try:\n"
+            f"    runpy.run_module({module!r}, run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert e.code in (0, None), e.code\n")
+
+
 def test_python_dash_m_repro_torch_runs_without_jax():
     """``python -m repro_torch`` with ``jax`` blocked in ``sys.modules``:
     imports, evaluates and byte-matches the golden, loading neither JAX
     nor the JAX package; nor do the recsys slice's modules (registry,
-    steps, models, the EmbeddingBag wrapper) when imported after it."""
+    steps, models, the EmbeddingBag wrapper), the eval arch, the service
+    and its client when imported after it.  ``python -m
+    repro_torch.baselines.trec_eval_cli`` prints what the JAX package's
+    baseline prints, and ``python -m repro_torch.serve --device cpu``
+    answers over stdio, both with ``jax`` blocked too."""
     code = (
         "import runpy, sys\n"
         "sys.modules['jax'] = None\n"
@@ -111,7 +128,10 @@ def test_python_dash_m_repro_torch_runs_without_jax():
         "import repro_torch.launch.api, repro_torch.launch.steps, "
         "repro_torch.models.recsys, repro_torch.kernels.embedding_bag\n"
         "from repro_torch.launch.api import get_arch, list_archs\n"
-        "assert list_archs() == ['autoint', 'mind', 'sasrec', 'xdeepfm']\n"
+        "import repro_torch.serve, repro_torch.client, "
+        "repro_torch.baselines.workflow\n"
+        "assert list_archs() == ['autoint', 'mind', 'pytrec-eval', "
+        "'sasrec', 'xdeepfm']\n"
         "bad = [m for m in sys.modules if m == 'repro' "
         "or m.startswith(('repro.', 'jax.', 'jaxlib'))]\n"
         "assert not bad, bad\n")
@@ -121,3 +141,31 @@ def test_python_dash_m_repro_torch_runs_without_jax():
                          text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout == _golden()
+
+    import contextlib
+    from repro.baselines import trec_eval_cli as jax_baseline
+
+    args = ["-q", "-m", "map", "-m", "ndcg", QREL, RUN]
+    want = io.StringIO()
+    with contextlib.redirect_stdout(want):
+        assert jax_baseline.main(args) == 0
+    out = subprocess.run(
+        [sys.executable, "-c",
+         _without_jax("repro_torch.baselines.trec_eval_cli", args)],
+        capture_output=True, text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout == want.getvalue()
+
+    lines = ['{"op": "ping", "id": 1}',
+             '{"op": "evaluate", "id": 2, "qrel_id": "default", '
+             '"run": {"q1": {"APPLE": 2.0, "banana": 1.0}}}']
+    out = subprocess.run(
+        [sys.executable, "-c",
+         _without_jax("repro_torch.serve",
+                      ["--device", "cpu", "--qrel", QREL, "-m", "map"])],
+        input="\n".join(lines) + "\n", capture_output=True, text=True,
+        env=env, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    resp = {r["id"]: r for r in map(json.loads, out.stdout.splitlines())}
+    assert resp[1] == {"id": 1, "ok": True, "result": "pong"}
+    assert resp[2]["ok"] and "map" in resp[2]["result"]["per_query"]["q1"]

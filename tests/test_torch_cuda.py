@@ -5,7 +5,8 @@ rows shorter than every cutoff, both regimes of the fused-measure kernel
 (a warp per row to D = 2,048, a block per row above) with Q off the
 block's rows and above the persistent grid, D off a multiple of 4 and
 rows off 16-byte alignment; tiles cut by D, k above D, several tiles
-merged into the running top-k, heavy ties and signed zeros; the top-k's
+merged into the running top-k, heavy ties and signed zeros, NaN of
+either sign after every number; the top-k's
 split path (one to three rows of up to 10^6, misaligned rows, ascending
 and all-equal scores); EmbeddingBag at odd widths, with empty bags, one
 bag holding every lookup and no lookups, and its fixed-length entry and
@@ -360,6 +361,46 @@ def test_topk_forced_splits_match_plain(cuda, q, d, k, n_splits,
                      cuda, misaligned=(d % 2 == 1))
         v, i = TK.topk(s, k)
         _assert_topk_exact(v, i, s, k)
+
+
+def _nan_scores(q, d, rng):
+    """Ties, +-inf and NaN of both signs and several payloads; row 1 all
+    NaN (``test_torch_kernels.nan_rows``'s rows; that module imports
+    JAX, this one none)."""
+    s = rng.choice(np.array([0.0, -0.0, 1.0, 2.0], np.float32), size=(q, d))
+    s[rng.random((q, d)) < 0.1] = np.inf
+    s[rng.random((q, d)) < 0.1] = -np.inf
+    nans = np.array([0x7FC00000, 0xFFC00000, 0x7F800001, 0xFFC00123],
+                    np.uint32).view(np.float32)
+    hit = rng.random((q, d)) < 0.15
+    s[hit] = rng.choice(nans, size=int(hit.sum()))
+    s[1] = nans[rng.integers(0, 4, d)]
+    return s
+
+
+@pytest.mark.parametrize("q,d,k,n_splits", [
+    (300, 5000, 1000, 1),    # one pass, a block a row
+    (2, 1_000_000, 1000, 0), # the split path as the wrapper chooses it
+    (3, 4099, 100, 5),       # forced splits
+    (4, 50, 200, 1),         # k > D: NaNs, then the padding
+])
+def test_topk_kernel_orders_nan_after_every_number(cuda, q, d, k, n_splits,
+                                                   monkeypatch):
+    """NaN of either sign after every number (-inf included) and before
+    the padding, as topk_plain and the full sort order it: indices exact,
+    values bit for bit."""
+    if n_splits:
+        monkeypatch.setattr(TK, "splits", lambda *_: n_splits)
+    s = torch.from_numpy(_nan_scores(q, d, np.random.default_rng(d))).to(cuda)
+    v, i = TK.topk(s, k)
+    pv, pi = TK.topk_plain(s, k)
+    torch.cuda.synchronize()
+    kk = min(k, d)
+    assert torch.equal(i[:, :kk], pi[:, :kk])
+    assert torch.equal(v[:, :kk].view(torch.int32),
+                       pv[:, :kk].view(torch.int32))
+    assert bool(torch.isnan(v[1, :kk]).all())
+    assert bool((v[:, kk:] == -np.inf).all()) and bool((i[:, kk:] >= d).all())
 
 
 # -- EmbeddingBag's fixed-length entry and the all-fields lookup ---------------

@@ -205,3 +205,81 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
         RelevanceEvaluator({"q": {"d": 1}}, ["map"])
     with pytest.raises(RuntimeError, match="CUDA"):
         RelevanceEvaluator({"q": {"d": 1}}, ["map"], device="cuda")
+
+
+#: depth-bounded measures: a wide enough run takes the top-k route
+DEPTH_MEASURES = ("P_5", "P_10", "success_1", "recall_10", "ndcg_cut_10",
+                  "map_cut_10", "judged_10")
+
+
+def _jax_full_sort(qrel, measures):
+    """The JAX evaluator held to its full-sort route: its top-k route has
+    no order for NaN (``repro/kernels/bitonic.py``), so it is no reference
+    for NaN scores."""
+    ev = JaxEvaluator(qrel, measures)
+    ev._route_topk = lambda buf: False
+    return ev
+
+
+@pytest.fixture(scope="module")
+def nan_case():
+    """Eight queries of 3-1,500 documents: ties, +-inf, NaN of both signs;
+    one query all NaN, two shorter than the depth-10 cutoffs' k."""
+    rng = np.random.default_rng(7)
+    qrel, run = {}, {}
+    for q, n in enumerate((1500, 700, 1200, 3, 600, 900, 8, 1100)):
+        docs = [f"q{q}d{i}" for i in range(n)]
+        s = np.round(rng.random(n), 2).astype(np.float32)
+        s[rng.random(n) < 0.05] = np.nan
+        s[rng.random(n) < 0.02] = -np.nan
+        s[rng.random(n) < 0.02] = np.inf
+        s[rng.random(n) < 0.02] = -np.inf
+        if q == 3:
+            s[:] = np.nan
+        judged = rng.choice(docs, min(n, 40), replace=False)
+        qrel[f"q{q}"] = {d: int(rng.integers(0, 3)) for d in judged}
+        run[f"q{q}"] = dict(zip(docs, s.tolist()))
+    return qrel, run
+
+
+def test_topk_route_ranks_nan_as_the_jax_full_sort(nan_case):
+    """NaN and +-inf scores, all-NaN and short rows: the port's top-k route
+    equals the JAX full-sort route (counts exact, the rest at 2e-4), and
+    the port's own full-sort route value for value."""
+    from repro_torch.core import measures as M
+
+    qrel, run = nan_case
+    ev = RelevanceEvaluator(qrel, DEPTH_MEASURES, device="cpu")
+    buf = ev.tokenize_run(run)
+    assert ev._route_topk(buf)
+    got = ev.evaluate(run)
+    assert_results_match(got, _jax_full_sort(qrel, DEPTH_MEASURES)
+                         .evaluate(run))
+    full = M.compute_measures(ev.batch_from_buffer(buf), ev.measures,
+                              ev.relevance_level)
+    for i, qid in enumerate(buf.qids):
+        for k in ev.measure_keys:
+            assert got[qid][k] == float(full[k][i]), (qid, k)
+
+
+def test_nan_on_relevant_documents_ranks_last_on_both_routes():
+    """One query of 1,500 documents, 10 relevant scored below every other,
+    3 of them NaN: P_10 is 0.0 on both routes, as on the JAX full sort
+    (the top-k route once ranked the NaNs first: 0.3)."""
+    from repro_torch.core import measures as M
+
+    rng = np.random.default_rng(3)
+    docs = [f"d{i:04d}" for i in range(1500)]
+    scores = 1.0 + rng.random(1500)
+    scores[:10] = rng.random(10) * 0.5
+    scores[:3] = np.nan
+    qrel = {"q1": {d: 1 for d in docs[:10]}}
+    run = {"q1": dict(zip(docs, scores.tolist()))}
+    ev = RelevanceEvaluator(qrel, {"P_10"}, device="cpu")
+    buf = ev.tokenize_run(run)
+    assert ev._route_topk(buf)
+    assert ev.evaluate(run)["q1"]["P_10"] == 0.0
+    full = M.compute_measures(ev.batch_from_buffer(buf), ev.measures,
+                              ev.relevance_level)
+    assert float(full["P_10"][0]) == 0.0
+    assert _jax_full_sort(qrel, {"P_10"}).evaluate(run)["q1"]["P_10"] == 0.0

@@ -155,3 +155,60 @@ def test_topk_split_rejects_a_stage_below_two(host_check):
     res = subprocess.run([host_check, "topk_split", "1", "10", "200", "1",
                           "1"], input=scores.tobytes(), capture_output=True)
     assert res.returncode == 2 and b"STAGE" in res.stderr
+
+
+def test_make_key_orders_nan_below_every_number_and_padding(host_check):
+    """bitonic.cuh's keys: every NaN (either sign, any payload) below
+    -inf and every number, NaNs by column among themselves, and above the
+    "no element yet" sentinel of rows shorter than k; -0.0 keyed as +0.0.
+    The order topk_plain sorts by."""
+    nans = np.array([0x7FC00000, 0xFFC00000, 0x7F800001, 0xFFC00123,
+                     0x7FFFFFFF, 0xFFFFFFFF], np.uint32).view(np.float32)
+    nums = np.array([np.inf, 3.5, 1e-45, 0.0, -0.0, -1e-45, -3.5,
+                     -np.finfo(np.float32).max, -np.inf], np.float32)
+    v = np.concatenate([nans, nums])
+    out = subprocess.run([host_check, "keys", str(len(v))],
+                         input=v.tobytes(), capture_output=True,
+                         check=True).stdout
+    keys = np.frombuffer(out, np.uint64)
+    key, empty = keys[:-1], keys[-1]
+    high = key >> np.uint64(32)
+    n = len(nans)
+    assert (high[:n] == high[0]).all()  # one word for every NaN
+    assert (key[:n] > empty).all()
+    assert key[:n].max() < key[n:].min()  # below every number, -inf too
+    assert (np.diff(key[:n].astype(np.int64)) < 0).all()  # by column
+    assert (np.diff(high[n:].astype(np.int64)) <= 0).all()
+    assert high[n + 3] == high[n + 4]  # -0.0 == +0.0
+    # the same order as topk_plain on one row of them
+    _, idx = TK.topk_plain(torch.from_numpy(v)[None], len(v))
+    np.testing.assert_array_equal(idx[0].numpy(),
+                                  np.argsort(-key.astype(np.float64),
+                                             kind="stable"))
+
+
+@pytest.mark.parametrize("q,d,k,splits,stage", [
+    (4, 300, 50, 1, 4096),    # one pass
+    (4, 3001, 128, 5, 64),    # split rows, a select every 32 keys
+    (4, 6, 9, 2, 16),         # rows shorter than k
+])
+def test_topk_nan_rows_match_plain(host_check, q, d, k, splits, stage):
+    """NaN of both signs beside +-inf, an all-NaN row, and short rows
+    through the kernel's filter, selects and merge: bit for bit against
+    topk_plain (NaN after every number, before the padding)."""
+    from test_torch_kernels import nan_rows
+
+    scores = nan_rows(q, d, d + k)
+    out = subprocess.run(
+        [host_check, "topk_split", str(q), str(d), str(k), str(splits),
+         str(stage)], input=scores.tobytes(), capture_output=True,
+        check=True).stdout
+    vals = np.frombuffer(out[:q * k * 4], np.uint32).reshape(q, k)
+    idx = np.frombuffer(out[q * k * 4:], np.int32).reshape(q, k)
+    pv, pi = TK.topk_plain(torch.from_numpy(scores), k)
+    kk = min(k, d)
+    np.testing.assert_array_equal(idx[:, :kk], pi.numpy()[:, :kk])
+    np.testing.assert_array_equal(vals[:, :kk],
+                                  pv.numpy()[:, :kk].view(np.uint32))
+    assert (vals[:, kk:].view(np.float32) == -np.inf).all()
+    assert (idx[:, kk:] >= d).all()

@@ -172,3 +172,48 @@ def test_topk_wrapper_on_cpu_is_the_plain_version_and_not_counted():
         TK.topk(scores[0], 5)
     assert TK.geometry(1000) == (1024, 2048)
     assert TK.geometry(20) == (128, 512)
+
+
+def nan_rows(q, d, seed):
+    """Rows with heavy ties, signed zeros, +-inf and NaN of both signs and
+    several payloads; row 1 all NaN; row 0 one NaN among numbers."""
+    rng = np.random.default_rng(seed)
+    s = rng.choice(np.array([0.0, -0.0, 1.0, 2.0], np.float32), size=(q, d))
+    s[rng.random((q, d)) < 0.1] = np.inf
+    s[rng.random((q, d)) < 0.1] = -np.inf
+    nans = np.array([0x7FC00000, 0xFFC00000, 0x7F800001, 0xFFC00123],
+                    np.uint32).view(np.float32)
+    hit = rng.random((q, d)) < 0.15
+    s[hit] = rng.choice(nans, size=int(hit.sum()))
+    s[0] = rng.standard_normal(d)
+    s[0, d // 2] = np.nan
+    s[1] = nans[rng.integers(0, 4, d)]
+    return s
+
+
+@pytest.mark.parametrize("q,d,k", [(4, 300, 50), (3, 40, 40), (4, 6, 9)])
+def test_topk_plain_orders_nan_after_every_number(q, d, k):
+    """Every NaN (either sign, any payload) after every number, -inf
+    included, NaNs by column: the order of the JAX package's full sort
+    (``repro.core.sorting.rank_sort`` with the column as tiebreak), which
+    is what the depth-bounded route must reproduce.  Rows shorter than k
+    (the last case) pad after their NaNs."""
+    from repro.core import sorting as JSORT
+
+    scores = nan_rows(q, d, q + d + k)
+    v, i = TK.topk_plain(torch.from_numpy(scores), k)
+    cols = np.broadcast_to(np.arange(d, dtype=np.int32), (q, d))
+    _, want = JSORT.rank_sort(jnp.asarray(scores), jnp.asarray(cols),
+                              jnp.ones((q, d), bool), jnp.asarray(cols))
+    kk = min(k, d)
+    np.testing.assert_array_equal(i[:, :kk].numpy(), np.asarray(want)[:, :kk])
+    # values are the scores at those columns, bit for bit (NaN payloads too)
+    np.testing.assert_array_equal(
+        v[:, :kk].numpy().view(np.uint32),
+        np.take_along_axis(scores, i[:, :kk].numpy().astype(np.int64),
+                           -1).view(np.uint32))
+    assert (v[:, kk:] == -np.inf).all() and (i[:, kk:] == 0).all()
+    # numpy's lexsort oracle agrees
+    rv, ri = ref.topk_ref(torch.from_numpy(scores), k)
+    assert torch.equal(i, ri)
+    assert np.isnan(v[1, :kk].numpy()).all()  # the all-NaN row

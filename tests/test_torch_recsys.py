@@ -190,7 +190,7 @@ def test_configs_and_shapes_match_jax(name, smoke):
 
 
 def test_registry_lists_the_ported_archs():
-    assert list_archs() == sorted(ARCHS)
+    assert list_archs() == sorted(ARCHS + ("pytrec-eval",))
     with pytest.raises(KeyError):
         get_arch("olmo-1b")
 
