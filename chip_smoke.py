@@ -83,6 +83,27 @@ points a user calls:
   ``evaluate_sweep`` table; ``python -m repro_torch.serve --device
   cuda`` through ``EvalClient.spawn_stdio``, its ``map`` equal to the
   CLI's.  Every child process and client call has a timeout.
+* K. The serve cluster on the card: ``serve.cluster.testing.ClusterThread``
+  with 2 workers (``python -m repro_torch.serve --device cuda``),
+  replication 2 and a durable journal in TMPDIR.  The card's free memory,
+  read here, falls by at least 2 x WORKER_MIN_BYTES once the workers
+  have registered and evaluated; phase H's three collections (each
+  registration naming its backend: ``"single"``, ``"sharded"`` with B1
+  in the workers, the depth-bounded one with B2) answer 32 concurrent
+  re-scored requests through the router, each bit-identical to
+  ``evaluate_buffer`` here on the card (p50, p99, the router's counters,
+  the summed backend calls).  The primary replica of ``"sharded"`` is
+  stopped, given a request and SIGKILLed: the sibling answers it (bit
+  for bit) before the slot's next generation is back with its journal
+  replayed (its restart seconds: backoff, torch import, CUDA context,
+  replay); ``drop_qrel`` with both replicas killed is
+  ``worker_unavailable``.  A new cluster on the same state dir answers
+  ``conformance.run`` byte-matching ``conformance.golden``; ``python -m
+  repro_torch.serve.cluster --workers 2 --device cuda`` answers one
+  request and exits 0 on SIGTERM with its client connected, leaving no
+  worker process.  Every boot, client call, poll and child has a
+  timeout.  The kernels run in the workers, so their launch counts are
+  not read here.
 * D. Each kernel against its plain PyTorch version on the main paths'
   inputs, with median times, the plain version's time, one PyTorch call's
   time where one computes the same function (``torch.topk``,
@@ -108,8 +129,10 @@ import argparse
 import io
 import json
 import os
+import signal
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -1763,13 +1786,36 @@ def _tokens(ev, qids, docnos):
     return q_list, counts, np.where(hit, tok, -1)
 
 
+def check_direct(device, qrels, measures, runs, names, fresh, results,
+                 what):
+    """Each answer bit-identical to the same evaluation in process, on
+    ``device``: ``evaluate_buffer`` of the collection's run re-scored with
+    the request's scores, through ``ShardedEvaluator`` (B1) for the
+    ``"sharded"`` collection."""
+    from repro_torch.core import RelevanceEvaluator
+    from repro_torch.distributed import ShardedEvaluator
+
+    direct = {}
+    for name in sorted(set(names)):
+        dev_ev = RelevanceEvaluator(qrels[name], measures[name],
+                                    device=device)
+        direct[name] = (dev_ev, dev_ev.tokenize_run(runs[name]),
+                        ShardedEvaluator(dev_ev) if name == "sharded"
+                        else None)
+    for j, (name, sc, res) in enumerate(zip(names, fresh, results)):
+        dev_ev, buf, sev = direct[name]
+        want = (sev.evaluate_buffer(buf, scores=sc).per_query if sev
+                else dev_ev.evaluate_buffer(buf, scores=sc))
+        check(res.per_query == want, f"{what}: request {j} ({name}) "
+              "differs from a direct evaluate_buffer")
+
+
 def _serve_tcp(device, sweep_data, rng, seed):
     """The TCP part of phase H: ServerThread on ``device`` and the port's
     EvalClient.  Returns the phase's numbers; raises on any mismatch."""
     from repro_torch import stats as S
     from repro_torch.client import EvalClient
     from repro_torch.core import RelevanceEvaluator, evaluate_sweep
-    from repro_torch.distributed import ShardedEvaluator
     from repro_torch.serve.testing import ServerThread
 
     qrel, qids, docnos, scores = sweep_data
@@ -1840,20 +1886,8 @@ def _serve_tcp(device, sweep_data, rng, seed):
     check(requests == SERVE_CONCURRENT, f"{requests} requests seen")
     check(calls < SERVE_CONCURRENT, f"{calls} backend calls for "
           f"{SERVE_CONCURRENT} requests: no coalescing")
-    # each answer against the same evaluation in process, on the card
-    direct = {}
-    for name in ("single", "sharded", "deep"):
-        dev_ev = RelevanceEvaluator(qrels[name], measures[name],
-                                    device=device)
-        direct[name] = (dev_ev, dev_ev.tokenize_run(runs[name]),
-                        ShardedEvaluator(dev_ev) if name == "sharded"
-                        else None)
-    for j, (name, sc, res) in enumerate(zip(names, fresh, results)):
-        dev_ev, buf, sev = direct[name]
-        want = (sev.evaluate_buffer(buf, scores=sc).per_query if sev
-                else dev_ev.evaluate_buffer(buf, scores=sc))
-        check(res.per_query == want,
-              f"request {j} ({name}) differs from a direct evaluate_buffer")
+    check_direct(device, qrels, measures, runs, names, fresh, results,
+                 "service")
     sweep = evaluate_sweep(ev, [ev.buffer_from_tokens(q_list, counts, tok, sc)
                                 for sc in cmp_scores], backend="single")
     want = S.significance_report(
@@ -1939,6 +1973,389 @@ def phase_service(device, sweep_data, seed):
     return out, None
 
 
+# -- phase K: the serve cluster on the card ----------------------------------
+
+#: the cluster: workers, replica-set size, concurrent re-scored requests
+#: (over phase H's three collections), requests tried until one sits on
+#: the worker to be killed
+CLUSTER_WORKERS = 2
+CLUSTER_REPLICATION = 2
+CLUSTER_CONCURRENT = 32
+KILL_PROBES = 8
+#: device memory each worker must hold once it has registered and
+#: evaluated (its CUDA context and its collections): the card's free
+#: memory, read in this process, must fall by CLUSTER_WORKERS times this.
+#: The first run on an H100 80GB HBM3 saw 1,366,491,136 bytes for the two
+#: workers (683 MB each); the bound is three quarters of that.
+WORKER_MIN_BYTES = 512 * 2**20
+CLUSTER_TIMEOUT = 120  # seconds: every boot, client call, poll and exit
+POLL_S = 0.01  # seconds between two reads of a polled condition
+
+
+def _wait_until(cond, timeout, every=POLL_S):
+    """Poll ``cond`` until it returns something true (returned) or
+    ``timeout`` seconds pass (None)."""
+    deadline = time.perf_counter() + timeout
+    while time.perf_counter() < deadline:
+        out = cond()
+        if out:
+            return out
+        time.sleep(every)
+    return None
+
+
+def _poll(cond, what, timeout=CLUSTER_TIMEOUT):
+    out = _wait_until(cond, timeout)
+    check(out, f"{what}: not within {timeout} s")
+    return out
+
+
+def device_free_bytes():
+    """Free memory of the whole card (every process), after this
+    process's cached blocks are returned."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.mem_get_info()[0]
+
+
+def _pid_running(pid):
+    """True while ``pid`` exists and is not a zombie."""
+    try:
+        with open(f"/proc/{pid}/stat") as fh:
+            return fh.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except (FileNotFoundError, ProcessLookupError):
+        return False
+
+
+class _Lines:
+    """A child's text stream read into a list on a thread, so its pipe
+    never fills; ``times`` holds when each line arrived."""
+
+    def __init__(self, stream):
+        self.lines, self.times = [], []
+        self._thread = threading.Thread(target=self._read, args=(stream,),
+                                        daemon=True)
+        self._thread.start()
+
+    def _read(self, stream):
+        for line in stream:
+            self.times.append(time.perf_counter())
+            self.lines.append(line.rstrip("\n"))
+
+    def wait_for(self, prefix, timeout=CLUSTER_TIMEOUT):
+        """The first line starting with ``prefix`` and when it arrived."""
+        i = _poll(lambda: next((i + 1 for i, ln in enumerate(
+                      list(self.lines)) if ln.startswith(prefix)), None),
+                  f"a {prefix!r} line on the child's stderr", timeout) - 1
+        return self.lines[i], self.times[i]
+
+    def join(self, timeout=10):
+        self._thread.join(timeout)
+
+
+def _workers(cluster):
+    return {w["name"]: w for w in cluster.health()["workers"]}
+
+
+def _back(cluster, name, generation):
+    w = _workers(cluster).get(name)
+    return w is not None and w["ready"] and w["generation"] > generation
+
+
+def _slot_inflight(cluster, name):
+    async def inflight():
+        slot = cluster.router._slots.get(name)
+        return 0 if slot is None else slot.inflight
+    return cluster.call(inflight(), timeout=CLUSTER_TIMEOUT)
+
+
+def _golden_text(per_query, qrel, measures):
+    """trec_eval's summary lines for the conformance run, as the CLI
+    prints them."""
+    from repro_torch import cli
+    from repro_torch.core import trec
+
+    runid = trec.run_id(os.path.join(FIXTURES, "conformance.run"))
+    lines = cli.summary_lines(per_query, cli.ordered_keys(measures), qrel,
+                              runid)
+    return "\n".join(lines) + "\n"
+
+
+def _cluster_cli(device):
+    """``python -m repro_torch.serve.cluster`` as a child: its banner, one
+    request through it, then SIGTERM with the client still connected: rc 0
+    within CLUSTER_TIMEOUT, no worker left."""
+    from repro_torch.client import EvalClient
+    from repro_torch.core import RelevanceEvaluator, trec
+
+    qrel = trec.load_qrel(os.path.join(FIXTURES, "conformance.qrel"))
+    run = trec.load_run(os.path.join(FIXTURES, "conformance.run"))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.serve.cluster", "--workers",
+         str(CLUSTER_WORKERS), "--device", device, "--host", "127.0.0.1",
+         "--port", "0", "--window-ms", "1"],
+        stdin=subprocess.DEVNULL, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True, env=_src_env())
+    err = _Lines(proc.stderr)
+    pids = []
+    try:
+        port = int(err.wait_for("serving on ")[0].rpartition(":")[2])
+        # the router prints this line once every worker answered a ping
+        boot_s = err.wait_for("cluster: ")[1] - t0
+        with EvalClient("127.0.0.1", port, timeout=CLUSTER_TIMEOUT) as client:
+            health = client.health()
+            check(health["ready"] == CLUSTER_WORKERS,
+                  f"the cluster CLI has {health['ready']} ready workers")
+            pids = [w["pid"] for w in health["workers"]]
+            client.register_qrel("conformance", qrel, ["map"])
+            got = client.evaluate("conformance", run=run).per_query
+            want = RelevanceEvaluator(qrel, ["map"],
+                                      device=device).evaluate(run)
+            check(got == want, "the cluster CLI's answer differs from the "
+                  "in-process evaluator's")
+            t1 = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=CLUSTER_TIMEOUT)
+            exit_s = time.perf_counter() - t1
+        err.join()
+        check(rc == 0, f"the cluster CLI exited {rc} after SIGTERM: "
+              f"{err.lines[-5:]}")
+        left = [p for p in pids if _pid_running(p)]
+        check(not left, f"worker processes {left} outlived the cluster CLI")
+        check(any(ln.startswith("drained") for ln in err.lines),
+              "the cluster CLI did not report its drain")
+    finally:
+        if proc.poll() is None:
+            # SIGTERM first: the cluster CLI stops its own workers
+            proc.send_signal(signal.SIGTERM)
+            try:
+                proc.wait(timeout=CLUSTER_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+        for pid in pids:
+            if _pid_running(pid):
+                os.kill(pid, signal.SIGKILL)
+    return {"boot_s": boot_s, "sigterm_exit_s": exit_s, "rc": rc,
+            "workers_left": 0, "worker_pids": pids}
+
+
+def _kill_midrequest(cluster, client, scores):
+    """SIGKILL the primary replica of ``"sharded"`` while a request sits
+    on it (the worker is stopped first, so it holds the request); returns
+    the requests sent, their answers, the seconds from the kill to the
+    last answer and to the killed slot's next generation being ready."""
+    owner = cluster.replicas_of("sharded")[0]
+    generation = _workers(cluster)[owner]["generation"]
+    futures = []
+    cluster.pause_worker(owner)
+    try:
+        for sc in scores:
+            futures.append(client.submit("sharded", run_ref="base",
+                                         scores=sc))
+            # p2c sends it to the stopped owner or its sibling: the next
+            # one goes to whichever holds fewer
+            if _wait_until(lambda: _slot_inflight(cluster, owner) > 0, 5):
+                break
+        check(_slot_inflight(cluster, owner) > 0,
+              f"no request reached {owner} in {len(futures)} tries")
+    finally:
+        t_kill = time.perf_counter()
+        cluster.kill_worker(owner)
+    results = [f.result(CLUSTER_TIMEOUT) for f in futures]
+    answered_s = time.perf_counter() - t_kill
+    # every answer is in: had one waited for the killed slot's restart
+    # instead of failing over, the new generation would be ready by now
+    check(not _back(cluster, owner, generation), "the request waited for "
+          "the restart instead of failing over to the sibling replica")
+    _poll(lambda: _back(cluster, owner, generation),
+          f"worker {owner} back after its SIGKILL")
+    restart_s = time.perf_counter() - t_kill
+    return owner, len(futures), results, answered_s, restart_s
+
+
+def phase_cluster(device, sweep_data, seed):
+    """The serve cluster on ``device``: a ClusterThread of CLUSTER_WORKERS
+    workers (``--device <device>``), every collection on
+    CLUSTER_REPLICATION of them, a durable journal in TMPDIR.  The card's
+    free memory falls by the workers' contexts; phase H's three collections
+    (Robust04-sized on ``"single"`` and ``"sharded"``, B1 in the workers,
+    and the depth-bounded one, B2) answer CLUSTER_CONCURRENT concurrent
+    re-scored requests bit-identical to ``evaluate_buffer`` here; a SIGKILL
+    of a replica under a request fails over to its sibling and the slot
+    comes back with its journal replayed; ``drop_qrel`` with every replica
+    down is ``worker_unavailable``; a cluster rebooted on the state dir
+    byte-matches the conformance golden; ``python -m
+    repro_torch.serve.cluster --device <device>`` answers and exits 0 on
+    SIGTERM with a client connected, leaving no worker behind."""
+    import shutil
+    import tempfile
+
+    from repro_torch.client import EvalClient, WorkerUnavailableError
+    from repro_torch.core import supported_measures, trec
+    from repro_torch.serve.cluster.testing import ClusterThread
+
+    rng = np.random.default_rng([seed, 31])
+    qrel, qids, docnos, scores = sweep_data
+    run = _run_dict(qids, docnos, scores)
+    dqrel, dqids, ddocnos, dscores = paper_data(rng, *SERVE_DEEP)
+    measures = {"single": PAPER_MEASURES, "sharded": PAPER_MEASURES,
+                "deep": SERVE_DEEP_MEASURES}
+    qrels = {"single": qrel, "sharded": qrel, "deep": dqrel}
+    runs = {"single": run, "sharded": run,
+            "deep": _run_dict(dqids, ddocnos, dscores)}
+    backends = {"single": "single", "sharded": "sharded", "deep": "single"}
+    conf_qrel = trec.load_qrel(os.path.join(FIXTURES, "conformance.qrel"))
+    conf_run = trec.load_run(os.path.join(FIXTURES, "conformance.run"))
+    selected = sorted(supported_measures)
+    worker_args = ["--device", device, "--backend", "single",
+                   "--window-ms", str(SERVE_WINDOW_S * 1e3)]
+    state = tempfile.mkdtemp(prefix="cluster_state_")
+    router_kw = dict(replication=CLUSTER_REPLICATION, retries=4,
+                     health_interval=30.0, rng_seed=seed, state_dir=state)
+    out = {"phase": "K", "workers": CLUSTER_WORKERS,
+           "replication": CLUSTER_REPLICATION,
+           "concurrent_requests": CLUSTER_CONCURRENT,
+           "window_s": SERVE_WINDOW_S}
+    try:
+        free0 = device_free_bytes()
+        t0 = time.perf_counter()
+        with ClusterThread(CLUSTER_WORKERS, worker_args=worker_args,
+                           router_kw=router_kw,
+                           boot_timeout=CLUSTER_TIMEOUT) as cluster, \
+                EvalClient(cluster.host, cluster.port,
+                           timeout=CLUSTER_TIMEOUT) as client:
+            out["boot_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            n_docs = {}
+            for name in ("single", "sharded", "deep"):
+                info = client.register_qrel(name, qrels[name],
+                                            list(measures[name]),
+                                            backend=backends[name])
+                check(info["backend"] == backends[name],
+                      f"collection {name} got backend {info['backend']}")
+                n_docs[name] = client.register_run(
+                    name, "base", run=runs[name])["n_docs"]
+            client.register_qrel("conformance", conf_qrel, selected,
+                                 relevance_level=1)
+            client.register_qrel("drop-probe", conf_qrel, ["map"])
+            out["register_s"] = time.perf_counter() - t0
+            for name in ("single", "sharded", "deep"):
+                client.evaluate(name, run_ref="base", scores=np.round(
+                    rng.random(n_docs[name]), 3))
+            free1 = device_free_bytes()
+            out["device_free_drop_bytes"] = free0 - free1
+            check(free0 - free1 >= CLUSTER_WORKERS * WORKER_MIN_BYTES,
+                  f"the card's free memory fell by {free0 - free1} bytes, "
+                  f"under {CLUSTER_WORKERS} x {WORKER_MIN_BYTES}: the "
+                  "workers do not hold the card")
+
+            # CLUSTER_CONCURRENT re-scored requests, round robin
+            names = [("single", "sharded", "deep")[i % 3]
+                     for i in range(CLUSTER_CONCURRENT)]
+            fresh = [np.round(rng.random(n_docs[n]), 3) for n in names]
+            before = cluster.stats()
+            done = [0.0] * len(names)
+            start, futures = [], []
+            for j, (name, sc) in enumerate(zip(names, fresh)):
+                start.append(time.perf_counter())
+                fut = client.submit(name, run_ref="base", scores=sc)
+                fut.add_done_callback(
+                    lambda _, j=j: done.__setitem__(j, time.perf_counter()))
+                futures.append(fut)
+            results = [f.result(CLUSTER_TIMEOUT) for f in futures]
+            after = cluster.stats()
+            check_direct(device, qrels, measures, runs, names, fresh,
+                         results, "cluster")
+            requests = after["requests"] - before["requests"]
+            check(requests == CLUSTER_CONCURRENT,
+                  f"the workers saw {requests} requests")
+            ms = (np.array(done) - np.array(start)) * 1e3
+            out.update({
+                "p50_ms": float(np.percentile(ms, 50)),
+                "p99_ms": float(np.percentile(ms, 99)),
+                "max_ms": float(ms.max()),
+                "requests_per_s": CLUSTER_CONCURRENT
+                / (max(done) - min(start)),
+                "backend_calls": after["backend_calls"]
+                - before["backend_calls"],
+                "requests_per_worker": {
+                    n: (w or {}).get("requests", 0)
+                    - (before["workers"].get(n) or {}).get("requests", 0)
+                    for n, w in after["workers"].items()},
+                "bit_identical_to_evaluate_buffer": CLUSTER_CONCURRENT})
+
+            # a replica SIGKILLed under a request
+            kill_scores = [np.round(rng.random(n_docs["sharded"]), 3)
+                           for _ in range(KILL_PROBES)]
+            owner, sent, kill_results, answered_s, restart_s = \
+                _kill_midrequest(cluster, client, kill_scores)
+            check_direct(device, qrels, measures, runs, ["sharded"] * sent,
+                         kill_scores, kill_results, "cluster kill")
+            journaled = {"single", "sharded", "deep", "conformance",
+                         "drop-probe"}
+            held = set(cluster.stats()["workers"][owner]["collections"])
+            check(journaled <= held, f"restarted {owner} holds {held}")
+            out["kill"] = {"worker": owner, "requests": sent,
+                           "answered_after_kill_s": answered_s,
+                           "restart_s": restart_s}
+
+            # drop_qrel with every replica down
+            generations = {n: w["generation"]
+                           for n, w in _workers(cluster).items()}
+            t0 = time.perf_counter()
+            for name in generations:
+                cluster.kill_worker(name)
+            try:
+                client.drop_qrel("drop-probe")
+                raise SmokeFailure("drop_qrel with every replica down "
+                                   "was acknowledged")
+            except WorkerUnavailableError as exc:
+                code = exc.code
+            for name, gen in generations.items():
+                _poll(lambda: _back(cluster, name, gen),
+                      f"worker {name} back after its SIGKILL")
+            out["all_down"] = {"drop_qrel": code,
+                               "restart_s": time.perf_counter() - t0}
+            check(client.drop_qrel("drop-probe") is True,
+                  "drop_qrel after the restart: the journal lost it")
+            for name in ("single", "sharded", "deep"):
+                check(client.drop_qrel(name) is True, f"drop {name}")
+            out["router"] = dict(cluster.router.counters)
+            check(out["router"]["failovers"] >= 1, "no failover counted")
+            t0 = time.perf_counter()
+        out["close_s"] = time.perf_counter() - t0
+
+        # a new cluster on the same state dir: the journal holds only
+        # the conformance collection now
+        t0 = time.perf_counter()
+        with ClusterThread(CLUSTER_WORKERS, worker_args=worker_args,
+                           router_kw=router_kw,
+                           boot_timeout=CLUSTER_TIMEOUT) as reborn, \
+                EvalClient(reborn.host, reborn.port,
+                           timeout=CLUSTER_TIMEOUT) as client:
+            reboot_s = time.perf_counter() - t0
+            journal = reborn.stats()["router"]["journal"]
+            check(journal["recovered_collections"] == 1,
+                  f"journal recovered {journal['recovered_collections']} "
+                  "collections, want 1")
+            res = client.evaluate("conformance", run=conf_run)
+        check(_golden_text(res.per_query, conf_qrel, selected)
+              == _golden("conformance.golden"),
+              "the rebooted cluster's conformance output differs from "
+              "the golden")
+        out["state_dir_restart"] = {"boot_s": reboot_s,
+                                    "golden": "byte-match"}
+        # after every timed section, so its boot overlaps none of them
+        out["cli"] = _cluster_cli(device)
+    finally:
+        shutil.rmtree(state, ignore_errors=True)
+    return out, None
+
+
 # -- entry point --------------------------------------------------------------
 
 
@@ -1998,6 +2415,7 @@ def main(argv=None) -> int:
     timed(phase_baselines, "cuda")
     timed(phase_arch, "cuda", paper, deep)
     timed(phase_service, "cuda", sweep["data"], args.seed)
+    timed(phase_cluster, "cuda", sweep["data"], args.seed)
     launches = {"fused_measures": out_b["launches"]["fused_measures"],
                 "fused_measures_sweep": out_f["launches"]["fused_measures"],
                 "fused_measures_deep":

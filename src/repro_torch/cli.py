@@ -120,6 +120,18 @@ def _summarize(results: Dict[str, Dict[str, float]], keys: Sequence[str],
     return out
 
 
+def summary_lines(results: Dict[str, Dict[str, float]], keys: Sequence[str],
+                  qrel: Dict[str, Dict[str, int]], runid: str, *,
+                  complete: bool = False,
+                  relevance_level: int = 1) -> List[str]:
+    """trec_eval's summary block: the ``runid`` and ``num_q`` lines, then
+    one ``all`` line per key."""
+    summary = _summarize(results, keys, qrel, complete, relevance_level)
+    return ([format_line("runid", "all", runid),
+             format_line("num_q", "all", summary["num_q"])]
+            + [format_line(k, "all", summary[k]) for k in keys])
+
+
 def add_measure_args(ap: argparse.ArgumentParser) -> None:
     """The measure-selection flags: ``-l``, repeatable ``-m``, ``-J``."""
     ap.add_argument("-l", dest="level", type=int, default=1, metavar="N",
@@ -206,11 +218,9 @@ def main(argv: Optional[Sequence[str]] = None, out=None) -> int:
                 format_line(k, qid, results[qid][k]) for k in pq_keys)
     # the evaluator resolved rel= annotations against -l; use its level so
     # num_rel's missing-query R matches what was actually scored
-    summary = _summarize(results, keys, qrel, args.complete,
-                         ev.relevance_level)
-    lines.append(format_line("runid", "all", runid))
-    lines.append(format_line("num_q", "all", summary["num_q"]))
-    lines.extend(format_line(k, "all", summary[k]) for k in keys)
+    lines.extend(summary_lines(results, keys, qrel, runid,
+                               complete=args.complete,
+                               relevance_level=ev.relevance_level))
     out.write("\n".join(lines) + "\n")
     return 0
 

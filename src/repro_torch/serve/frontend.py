@@ -35,7 +35,8 @@ is an error response — the connection may retry); ``--rate-limit`` /
 ``--burst`` throttle each connection through a token bucket (excess
 requests are *delayed*, never dropped).  On SIGINT/SIGTERM the server
 stops accepting, finishes in-flight batches
-(:meth:`EvaluationService.drain`), and exits cleanly.
+(:meth:`EvaluationService.drain`), and exits cleanly, within a few
+seconds even while clients stay connected (:func:`close_server`).
 
 Front-ends::
 
@@ -262,9 +263,9 @@ async def serve_protocol(handler, host: str = "127.0.0.1", port: int = 0,
     token-bucket read throttling, one task per request line so slow
     requests never block the reader, write-lock-serialized responses,
     graceful teardown — is identical for the evaluation front-end
-    (:func:`serve_tcp`) and a cluster router (the JAX package's
-    ``repro.serve.cluster``, not ported yet); only what *handles* a decoded request
-    differs.  ``handler(req, raw)`` receives the parsed request object and
+    (:func:`serve_tcp`) and the cluster router
+    (:mod:`repro_torch.serve.cluster`); only what *handles* a decoded
+    request differs.  ``handler(req, raw)`` receives the parsed request object and
     the raw frame bytes, and returns either a response ``dict`` (JSON
     encoded here) or pre-encoded response ``bytes`` — one JSON object, no
     newline — written verbatim (the router's fan-out path returns worker
@@ -354,6 +355,29 @@ async def serve_protocol(handler, host: str = "127.0.0.1", port: int = 0,
                 pass
 
     return await asyncio.start_server(client, host, port, limit=limit)
+
+
+#: seconds a shutdown waits for connected clients to hang up.  Since
+#: Python 3.12.1 ``asyncio.Server.wait_closed()`` waits until every open
+#: connection has closed, so one idle client would hold the process open
+#: for as long as it stays connected.
+CLOSE_TIMEOUT = 2.0
+
+
+async def close_server(server) -> bool:
+    """Stop accepting, then wait at most ``CLOSE_TIMEOUT`` seconds for the
+    open connections to close; True if they all did.
+
+    Connections still open after the wait keep being served: their
+    handlers answer the request lines they read (the caller drains the
+    service next) until the event loop cancels them at exit.
+    """
+    server.close()
+    try:
+        await asyncio.wait_for(server.wait_closed(), CLOSE_TIMEOUT)
+    except asyncio.TimeoutError:
+        return False
+    return True
 
 
 async def serve_tcp(service: EvaluationService, host: str = "127.0.0.1",
@@ -528,15 +552,17 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             try:
                 await stop.wait()
             finally:
-                # graceful drain: stop accepting, give request lines already
-                # read a beat to enter the service, finish in-flight batches
-                server.close()
-                await server.wait_closed()
+                # graceful drain: stop accepting (waiting at most
+                # CLOSE_TIMEOUT for clients to hang up: an idle client
+                # would hold 3.12's wait_closed forever), give request lines
+                # already read a beat to enter the service, finish in-flight
+                # batches
+                await close_server(server)
                 await asyncio.sleep(0.05)
                 await service.drain()
                 # then let handler tasks finish WRITING those responses
-                # (3.10's wait_closed doesn't wait for handlers; bounded,
-                # since connected-but-idle clients keep handlers alive)
+                # (bounded: a connected-but-idle client's handler never
+                # ends on its own; asyncio.run cancels it on the way out)
                 others = [t for t in asyncio.all_tasks()
                           if t is not asyncio.current_task()]
                 if others:

@@ -21,7 +21,7 @@ import asyncio
 import threading
 from typing import Optional
 
-from repro_torch.serve.frontend import serve_tcp
+from repro_torch.serve.frontend import close_server, serve_tcp
 from repro_torch.serve.service import EvaluationService
 
 
@@ -33,7 +33,8 @@ class ServerThread:
     to :func:`serve_tcp` (``limit``, ``auth_token``, ``rate_limit``,
     ``burst``).  The server listens on ``127.0.0.1`` at an ephemeral port
     (:attr:`port`).  Start-up waits at most 30 s and :meth:`close` at most
-    30 s for the drain plus 10 s for the thread; every :meth:`call` takes
+    30 s for the drain (of which at most ``CLOSE_TIMEOUT`` for connected
+    clients to hang up) plus 10 s for the thread; every :meth:`call` takes
     its own timeout.
     """
 
@@ -90,11 +91,12 @@ class ServerThread:
         """Graceful shutdown: stop accepting, drain, stop the loop."""
         if self._thread.is_alive():
             async def _shutdown():
-                self._server.close()
-                await self._server.wait_closed()
+                # at most CLOSE_TIMEOUT for clients to hang up (3.12's
+                # wait_closed would wait on a connected client for ever)
+                await close_server(self._server)
                 await self.service.drain()
                 # let connection handlers run their finally blocks before
-                # the loop stops (3.10's wait_closed doesn't wait for them)
+                # the loop stops (bounded: an idle client's never ends)
                 others = [t for t in asyncio.all_tasks()
                           if t is not asyncio.current_task()]
                 if others:

@@ -112,8 +112,10 @@ def test_python_dash_m_repro_torch_runs_without_jax():
     steps, models, the EmbeddingBag wrapper), the eval arch, the service
     and its client when imported after it.  ``python -m
     repro_torch.baselines.trec_eval_cli`` prints what the JAX package's
-    baseline prints, and ``python -m repro_torch.serve --device cpu``
-    answers over stdio, both with ``jax`` blocked too."""
+    baseline prints, ``python -m repro_torch.serve --device cpu``
+    answers over stdio, and ``python -m repro_torch.serve.cluster --help``
+    prints its flags, ``--device`` among them, all with ``jax`` blocked
+    too; ``repro_torch.serve.cluster`` imports without it."""
     code = (
         "import runpy, sys\n"
         "sys.modules['jax'] = None\n"
@@ -129,7 +131,8 @@ def test_python_dash_m_repro_torch_runs_without_jax():
         "repro_torch.models.recsys, repro_torch.kernels.embedding_bag\n"
         "from repro_torch.launch.api import get_arch, list_archs\n"
         "import repro_torch.serve, repro_torch.client, "
-        "repro_torch.baselines.workflow\n"
+        "repro_torch.baselines.workflow, repro_torch.serve.cluster, "
+        "repro_torch.serve.cluster.testing\n"
         "assert list_archs() == ['autoint', 'mind', 'pytrec-eval', "
         "'sasrec', 'xdeepfm']\n"
         "bad = [m for m in sys.modules if m == 'repro' "
@@ -169,3 +172,11 @@ def test_python_dash_m_repro_torch_runs_without_jax():
     resp = {r["id"]: r for r in map(json.loads, out.stdout.splitlines())}
     assert resp[1] == {"id": 1, "ok": True, "result": "pong"}
     assert resp[2]["ok"] and "map" in resp[2]["result"]["per_query"]["q1"]
+
+    out = subprocess.run(
+        [sys.executable, "-c",
+         _without_jax("repro_torch.serve.cluster", ["--help"])],
+        capture_output=True, text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.startswith("usage: python -m repro_torch.serve.cluster")
+    assert "--device {cuda,cpu}" in out.stdout

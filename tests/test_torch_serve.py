@@ -16,6 +16,13 @@ it.
 import asyncio
 import json
 import math
+import os
+import selectors
+import signal
+import socket
+import subprocess
+import sys
+import time
 
 import numpy as np
 import pytest
@@ -28,6 +35,7 @@ from repro.serve.wire import ERROR_CODES as JAX_ERROR_CODES
 
 from repro_torch import stats as S
 from repro_torch.core import RelevanceEvaluator, evaluate_sweep
+from repro_torch.core.trec import load_qrel
 from repro_torch.data.synthetic_ir import synthesize_run
 from repro_torch.distributed import select_backend
 from repro_torch.serve import (ERROR_CODES, EvaluationService, handle_line,
@@ -36,6 +44,8 @@ from repro_torch.serve import (ERROR_CODES, EvaluationService, handle_line,
 from test_torch_measures import single_torch_thread  # noqa: F401
 
 WAIT = 60  # seconds: the bound on every coroutine a test runs
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+QREL = os.path.join(os.path.dirname(__file__), "fixtures", "conformance.qrel")
 EXACT_MEASURES = ["P", "recall", "success", "num_ret", "num_rel",
                   "num_rel_ret", "judged"]
 FLOAT_MEASURES = ["map", "ndcg", "recip_rank", "Rprec", "bpref", "ndcg_cut"]
@@ -320,3 +330,88 @@ def test_port_docstring_examples(module_name):
 
     results = doctest.testmod(importlib.import_module(module_name))
     assert results.attempted > 0 and results.failed == 0, results
+
+
+def _stderr_banner_port(proc, timeout):
+    """The port of ``serving on HOST:PORT`` on the child's stderr."""
+    deadline = time.monotonic() + timeout
+    sel = selectors.DefaultSelector()
+    sel.register(proc.stderr, selectors.EVENT_READ)
+    buf = b""
+    try:
+        while time.monotonic() < deadline:
+            if not sel.select(timeout=max(0.0, deadline - time.monotonic())):
+                continue
+            chunk = os.read(proc.stderr.fileno(), 4096)
+            assert chunk, f"server exited before its banner: {buf!r}"
+            buf += chunk
+            for line in buf.decode("utf-8", "replace").splitlines():
+                if line.startswith("serving on "):
+                    return int(line.rpartition(":")[2])
+    finally:
+        sel.close()
+    raise AssertionError(f"no banner within {timeout} s: {buf!r}")
+
+
+def _read_until(stream, rid):
+    """Response lines off ``stream`` (its socket has a timeout) until the
+    one answering ``rid``."""
+    while True:
+        line = stream.readline()
+        assert line, f"connection closed before the answer to id {rid}"
+        msg = json.loads(line)
+        if msg["id"] == rid:
+            return msg
+
+
+def test_sigterm_exits_with_an_idle_client_connected():
+    """Since Python 3.12.1 ``Server.wait_closed()`` waits for every open
+    connection.  With one client connected and idle, SIGTERM must still end
+    ``python -m repro_torch.serve`` with rc 0 within 10 s, and a request
+    sent before the signal is still answered."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.serve", "--tcp", "127.0.0.1:0",
+         "--device", "cpu", "--qrel", QREL, "-m", "map",
+         "--window-ms", "500"],
+        stdin=subprocess.DEVNULL, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, env=env)
+    socks = []
+    try:
+        port = _stderr_banner_port(proc, timeout=60)
+        for _ in range(2):
+            socks.append(socket.create_connection(("127.0.0.1", port),
+                                                  timeout=WAIT))
+        idle, busy = socks
+        stream = busy.makefile("rwb")
+        run = {"q1": {"APPLE": 2.0, "banana": 1.0}}
+        stream.write(json.dumps({"op": "evaluate", "id": 1,
+                                 "qrel_id": "default",
+                                 "run": run}).encode() + b"\n")
+        stream.flush()
+        # the evaluate sits in the 500 ms window: wait until it is in flight
+        for rid in range(2, 200):
+            stream.write(json.dumps({"op": "health", "id": rid}).encode()
+                         + b"\n")
+            stream.flush()
+            if _read_until(stream, rid)["result"]["in_flight"] >= 1:
+                break
+        else:
+            raise AssertionError("the evaluate never showed as in flight")
+        proc.send_signal(signal.SIGTERM)
+        t0 = time.monotonic()
+        answer = _read_until(stream, 1)
+        rc = proc.wait(timeout=10)
+        exit_s = time.monotonic() - t0
+    finally:
+        for sock in socks:
+            sock.close()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10)
+        proc.stderr.close()
+    assert rc == 0 and exit_s < 10
+    want = RelevanceEvaluator(load_qrel(QREL), ["map"],
+                              device="cpu").evaluate(run)
+    assert answer["ok"] and answer["result"]["per_query"] == want
