@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--seed N]
 
-Builds the three CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
-per source, in parallel), then drives the port's paths through the entry
+Builds the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
+source, in parallel), then drives the port's paths through the entry
 points a user calls:
 
 * A. ``python -m repro_torch`` (in-process, ``--device cuda``) on the
@@ -104,6 +104,26 @@ points a user calls:
   worker process.  Every boot, client call, poll and child has a
   timeout.  The kernels run in the workers, so their launch counts are
   not read here.
+* T. Training on the card.  The four recsys archs at full width
+  (``make_config(False)``, seeded weights) and ``train_batch`` (65,536
+  rows): ``make_step(cfg, shape)``'s train step with its
+  ``init_opt`` state, 3 optimizer steps each (step ms, the median of
+  steps 2-3; rows/s; peak device bytes; the row chunks the dense part
+  took; loss, grad_norm and lr per step, finite), one more step
+  profiled; xDeepFM's steps must launch B3 and B3-bwd.  Then one step of
+  1,024 rows at full width on the card, under
+  ``torch.cuda.set_sync_debug_mode("error")``, against the same step on
+  the CPU (the kernels' plain versions) from the same weights and
+  optimizer state: loss, grad_norm and lr within 2e-4, every
+  parameter's gradient (the table's touched rows with the rest) within
+  2e-3 of its norm (ReLU kinks: see GRAD_NORM_TOL), the entries beyond
+  2e-4 · |g| + 2e-4 · max|g| counted.  B3-bwd at the train_batch
+  shape: two launches bit for bit equal, within 1e-6 of its plain
+  version on the card, bit for bit its plain version on the CPU.  GatedGCN at full width (16 layers, d 70) on
+  ``full_graph_sm``, ``molecule`` (the graph task) and ``minibatch_lg``
+  (a random graph at the padded subgraph's size): 3 steps each with the
+  in-loop rank metrics, one more profiled, ``full_graph_sm`` against the
+  CPU as above.  ``ogb_products`` is reckoned, not run.
 * D. Each kernel against its plain PyTorch version on the main paths'
   inputs, with median times, the plain version's time, one PyTorch call's
   time where one computes the same function (``torch.topk``,
@@ -115,7 +135,8 @@ points a user calls:
   sweep (``[2,048, 1,024]``), B2 at ``[1,024, 65,536]`` (phase C)
   and ``[1, 10^6]`` (phase E), B3's all-fields call at the ``serve_bulk``
   batch (phase E), with its general sort-and-CSR wrapper at one field's
-  bags beside it.
+  bags beside it, and B3-bwd at phase T's train_batch bags (the backward
+  of ``F.embedding_bag`` timed beside it).
 
 Every phase prints one JSON line; any failure raises and exits non-zero.
 The last lines are the card's ``nvidia-smi`` name and power limit and
@@ -270,12 +291,17 @@ def _kernel_modules():
 
 def zero_launches():
     """Set every kernel's launch count to 0 (just before a path runs)."""
-    for mod in _kernel_modules().values():
+    mods = _kernel_modules()
+    for mod in mods.values():
         mod.LAUNCHES = 0
+    mods["embedding_bag"].BACKWARD_LAUNCHES = 0
 
 
 def read_launches():
-    return {name: mod.LAUNCHES for name, mod in _kernel_modules().items()}
+    mods = _kernel_modules()
+    out = {name: mod.LAUNCHES for name, mod in mods.items()}
+    out["embedding_bag_backward"] = mods["embedding_bag"].BACKWARD_LAUNCHES
+    return out
 
 
 def _stacked(cols):
@@ -2359,6 +2385,392 @@ def phase_cluster(device, sweep_data, seed):
 # -- entry point --------------------------------------------------------------
 
 
+# -- phase T: training on the card --------------------------------------------
+
+#: recsys training at full width and train_batch; GatedGCN at full width
+TRAIN_STEPS = 3  # optimizer steps per model; steps 2..3 are timed
+TRAIN_CHECK_ROWS = 1024  # rows of the one-step check against the CPU
+GRAD_TOL = 2e-4  # loss, grad_norm, metrics (sums in another order)
+#: each gradient leaf: ||g - g_cpu|| <= GRAD_NORM_TOL · ||g_cpu||.  Not
+#: element by element: a ReLU input within float32 rounding of 0 takes the
+#: other side on one device, which changes a few gradient entries by their
+#: whole size (one such flip at 1,024 SASRec rows: 4e-4 to 7e-4 of a leaf's
+#: norm, 34x GRAD_TOL·max|g| at one entry; in float64 on the card, 0.0025x).
+#: The entries beyond GRAD_TOL·|g| + GRAD_TOL·max|g| are counted and shown.
+GRAD_NORM_TOL = 2e-3
+B3_BWD_TOL = 1e-6  # B3-bwd against its plain version on the card (atomics)
+GNN_SHAPES = ("full_graph_sm", "molecule", "minibatch_lg")
+GNN_CPU_SHAPE = "full_graph_sm"
+
+
+def _cpu_clone(model):
+    """The same weights in a module of the same class on the CPU (built on
+    ``meta``, so no weights are drawn on the host)."""
+    cpu = type(model)(model.cfg, device="meta").to_empty(device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    return cpu
+
+
+def gnn_batch(shape, cfg, seed):
+    """A batch of ``shape``, numpy, from the seed: a random graph at the
+    step's (n_nodes, n_edges) for the node task (``minibatch_lg``: made
+    directly at the padded subgraph's size, the loss on its first
+    ``batch_nodes`` nodes, as the sampler marks its seeds), a disjoint
+    union of small graphs for the graph task."""
+    from repro_torch.data import graph_data as GD
+
+    n_classes, d_feat = shape.get("n_classes"), shape.get("d_feat")
+    if shape.get("graph_task", False):
+        return GD.graph_batch(shape.get("n_graphs"),
+                              shape.get("nodes_per_graph"),
+                              shape.get("edges_per_graph"), d_feat,
+                              n_classes, cfg.d_edge_in, seed=seed)
+    n = shape.get("n_nodes")
+    g = GD.random_graph(GD.GraphConfig(n, shape.get("n_edges"), d_feat,
+                                       n_classes, cfg.d_edge_in, seed))
+    if shape.get("batch_nodes"):
+        g["train_mask"] = np.arange(n) < shape.get("batch_nodes")
+    return g
+
+
+def _train_steps(bundle, model, state, batches, device):
+    """TRAIN_STEPS steps; per step the host ms of the step (its batch
+    already on the card; synchronised after) and the metrics, each
+    finite."""
+    import torch
+
+    from repro_torch.launch.api import to_device
+
+    rows = []
+    for s in range(TRAIN_STEPS):
+        batch = to_device(batches(s), device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, state, metrics = bundle.step_fn(model, state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        vals = {k: float(v) for k, v in metrics.items()}
+        check(all(np.isfinite(v) for v in vals.values()),
+              f"non-finite train metrics {vals}")
+        rows.append({"ms": ms, **vals})
+        del batch
+    return model, state, rows
+
+
+def profile_step(bundle, model, state, batch):
+    """``profile_call`` of one more train step on ``batch`` (the model and
+    state carried on); returns (profile, model, state)."""
+    held = [model, state]
+
+    def one():
+        held[0], held[1], _ = bundle.step_fn(held[0], held[1], batch)
+
+    prof = profile_call(one, top=10)
+    return prof, held[0], held[1]
+
+
+def _grads_close(card, cpu, what):
+    """Every leaf of ``card`` (gradients on the card) within GRAD_NORM_TOL
+    of ``cpu``'s in norm; per leaf, the norm share and the entries beyond
+    GRAD_TOL·|g| + GRAD_TOL·max|g| (reported, see GRAD_NORM_TOL)."""
+    import torch
+
+    check(card.keys() == cpu.keys(), f"{what}: gradient leaves differ")
+    out = {}
+    for name, want in cpu.items():
+        got = card[name]
+        want = want.to(got.device)
+        check(bool(torch.isfinite(got).all() and torch.isfinite(want).all()),
+              f"{what} {name}: non-finite gradient")
+        diff = got - want
+        rel = float(torch.linalg.vector_norm(diff)
+                    / torch.clamp(torch.linalg.vector_norm(want), min=1e-30))
+        allow = GRAD_TOL * want.abs() + GRAD_TOL * float(want.abs().max())
+        beyond = int((diff.abs() > allow).sum())
+        check(rel <= GRAD_NORM_TOL, f"{what} {name}: gradient {rel:.3g} of "
+              f"its norm from the CPU's (limit {GRAD_NORM_TOL}); "
+              f"{beyond} entries beyond the entrywise tolerance")
+        out[name] = {"norm_share": rel, "entries_beyond": beyond,
+                     "entries": got.numel()}
+        del want, diff, allow
+    return out
+
+
+def _metrics_close(card, cpu, what):
+    worst = 0.0
+    for k, v in cpu.items():
+        g, w = float(card[k]), float(v)
+        check(abs(g - w) <= GRAD_TOL + GRAD_TOL * abs(w),
+              f"{what} {k}: card {g} vs CPU {w}")
+        worst = max(worst, abs(g - w))
+    return worst
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return type(tree)(*(_tree_to(v, device) for v in tree))
+    return tree.to(device)
+
+
+def _step_against_cpu(bundle, cpu_bundle, model, state, batch, device,
+                      what):
+    """One step of ``bundle`` on the card under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a host sync in the step
+    raises) against the same step on the CPU (the kernels' plain
+    versions) from the same weights and optimizer state: the metrics
+    (loss, grad_norm, lr, rank metrics) and every parameter's gradient.
+    Touched table rows are compared with the rest (untouched rows must be
+    zero on both)."""
+    import torch
+
+    from repro_torch.launch.api import to_device
+
+    cpu_model = _cpu_clone(model)
+    cpu_state = _tree_to(state, "cpu")
+    dev_batch = to_device(batch, device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        model, state, metrics = bundle.step_fn(model, state, dev_batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    cpu_model, _, cpu_metrics = cpu_bundle.step_fn(
+        cpu_model, cpu_state, to_device(batch, "cpu"))
+    card_grads = {n: p.grad for n, p in model.named_parameters()}
+    cpu_grads = {n: p.grad for n, p in cpu_model.named_parameters()}
+    out = {"metrics_max_abs_err_vs_cpu": _metrics_close(metrics, cpu_metrics,
+                                                        what),
+           "grads": _grads_close(card_grads, cpu_grads, what),
+           "loss": float(metrics["loss"]),
+           "grad_norm": float(metrics["grad_norm"]),
+           "sync_debug_mode": "error"}
+    del cpu_model, cpu_grads, cpu_state
+    return model, state, out
+
+
+def _recsys_train(name, seed, device):
+    """One arch at full width: TRAIN_STEPS steps at train_batch, then one
+    step of TRAIN_CHECK_ROWS rows against the CPU."""
+    import torch
+
+    from repro_torch.configs.common import smoke_shape
+    from repro_torch.launch.api import get_arch, to_device
+    from repro_torch.launch.steps import MODELS
+    from repro_torch.models import recsys as R
+
+    arch = get_arch(name)
+    cfg = arch.make_config(False)
+    shape = arch.shapes["train_batch"]
+    b = shape.get("batch")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model = MODELS[name](cfg, device=device, generator=gen)
+    bundle = arch.make_step(cfg, shape)
+    state = bundle.init_opt(model)
+    zero_launches()
+    model, state, steps = _train_steps(
+        bundle, model, state,
+        lambda s: recsys_request(name, cfg, shape, seed, 3000 + s)[0],
+        device)
+    launches = read_launches()
+    ms = float(np.median([s["ms"] for s in steps[1:]]))
+    peak = torch.cuda.max_memory_allocated()
+    prof, model, state = profile_step(bundle, model, state, to_device(
+        recsys_request(name, cfg, shape, seed, 3000)[0], device))
+    rows = R.train_chunk_rows(name, cfg)
+    res = {"batch": b, "params": sum(p.numel() for p in model.parameters()),
+           "step_ms": ms, "rows_per_s": b / ms * 1e3,
+           "peak_device_bytes": peak, "chunk_rows": rows,
+           "chunks": -(-b // rows), "steps": steps, "launches": launches,
+           "profile": prof}
+    if name == "xdeepfm":
+        check(launches["embedding_bag"] > 0
+              and launches["embedding_bag_backward"] > 0,
+              f"xdeepfm training launched B3 {launches['embedding_bag']} and "
+              f"B3-bwd {launches['embedding_bag_backward']} times")
+    small = smoke_shape(shape, batch=TRAIN_CHECK_ROWS)
+    batch = recsys_request(name, cfg, small, seed, 4000)[0]
+    model, state, res["against_cpu"] = _step_against_cpu(
+        arch.make_step(cfg, small), arch.make_step(cfg, small, device="cpu"),
+        model, state, batch, device, name)
+    res["against_cpu"]["rows"] = TRAIN_CHECK_ROWS
+    keep = None
+    if name == "xdeepfm":
+        keep = (model.table.shape[0], cfg,
+                recsys_request(name, cfg, shape, seed, 3000)[0])
+    del model, state
+    return res, keep
+
+
+def b3_backward_check(xdeepfm, seed, device):
+    """B3-bwd at the train_batch shape (65,536 rows x 3 multi-hot fields x
+    8 lookups into the 39M-row table): two launches bit for bit equal,
+    within B3_BWD_TOL of the plain version on the card (``index_add_``
+    with atomics) and bit for bit equal to the plain version on the CPU
+    (which adds in lookup order, as the kernel does)."""
+    import torch
+
+    from repro_torch.kernels import embedding_bag as EB
+
+    v, cfg, batch = xdeepfm
+    b, f, m = batch["mh_ids"].shape
+    e = cfg.table.dim
+    ids = torch.from_numpy(batch["mh_ids"].reshape(b * f, m)).to(device)
+    mask = torch.from_numpy(batch["mh_mask"].reshape(b * f, m)).to(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    grad = torch.randn((b * f, e), generator=gen, device=device)
+    args = (grad, ids, mask, v, f, cfg.table.vocab_per_field)
+    first = EB.embedding_bag_fixed_backward(*args)
+    second = EB.embedding_bag_fixed_backward(*args)
+    plain = EB.embedding_bag_fixed_backward_plain(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(first, second), "B3-bwd differs between two launches")
+    err = float((first - plain).abs().max())
+    check(err <= B3_BWD_TOL, f"B3-bwd {err} from its plain version")
+    del second, plain
+    cpu = EB.embedding_bag_fixed_backward_plain(
+        grad.cpu(), ids.cpu(), mask.cpu(), v, f, cfg.table.vocab_per_field)
+    check(torch.equal(first.cpu(), cpu),
+          "B3-bwd differs from the plain version on the CPU")
+    del first, cpu
+    return {"shape": [v, e, b * f * m, b * f], "max_abs_err": err,
+            "deterministic": True, "bit_identical_to_cpu_plain": True}, args
+
+
+def _gnn_train(shape_name, seed, device):
+    import torch
+
+    from repro_torch.configs.gatedgcn import shape_config
+    from repro_torch.launch.api import get_arch, to_device
+    from repro_torch.models.gnn import GatedGCN
+
+    arch = get_arch("gatedgcn")
+    shape = arch.shapes[shape_name]
+    cfg = arch.make_config(False)
+    scfg = shape_config(cfg, shape)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model = GatedGCN(scfg, device=device, generator=gen)
+    bundle = arch.make_step(cfg, shape)
+    state = bundle.init_opt(model)
+    batch = gnn_batch(shape, scfg, seed)
+    model, state, steps = _train_steps(bundle, model, state,
+                                       lambda s: batch, device)
+    for s in steps:
+        for k in ("recip_rank", "ndcg", "success_1", "success_5",
+                  "success_10"):
+            check(0.0 <= s[k] <= 1.0, f"gatedgcn {shape_name} {k} = {s[k]}")
+    res = {"n_nodes": shape.get("n_nodes"), "n_edges": shape.get("n_edges"),
+           "step_ms": float(np.median([s["ms"] for s in steps[1:]])),
+           "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "steps": steps}
+    res["profile"], model, state = profile_step(
+        bundle, model, state, to_device(batch, device))
+    if shape_name == GNN_CPU_SHAPE:
+        _, _, res["against_cpu"] = _step_against_cpu(
+            bundle, arch.make_step(cfg, shape, device="cpu"), model, state,
+            batch, device, f"gatedgcn {shape_name}")
+    del model, state
+    return res
+
+
+def phase_train(device, seed):
+    """Training on the card: the four recsys archs at full width and
+    train_batch, B3-bwd against its plain version, GatedGCN at full width
+    on three shapes; ogb_products reckoned, not run."""
+    import torch
+
+    from repro_torch.launch.api import get_arch
+
+    result = {"phase": "T", "recsys": {}, "gnn": {}}
+    keep = {}
+    for name in RECSYS_ARCHS:
+        t0 = time.perf_counter()
+        res, xd = _recsys_train(name, seed, device)
+        res["seconds"] = time.perf_counter() - t0
+        result["recsys"][name] = res
+        if xd is not None:
+            keep["xdeepfm_launches"] = res["launches"]
+            result["b3_backward"], keep["b3_backward"] = b3_backward_check(
+                xd, seed, device)
+        torch.cuda.empty_cache()
+    for shape_name in GNN_SHAPES:
+        t0 = time.perf_counter()
+        result["gnn"][shape_name] = _gnn_train(shape_name, seed, device)
+        result["gnn"][shape_name]["seconds"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    ogb = get_arch("gatedgcn").shapes["ogb_products"]
+    d = get_arch("gatedgcn").make_config(False).d_hidden
+    layers = get_arch("gatedgcn").make_config(False).n_layers
+    edge_state = ogb.get("n_edges") * d * 4
+    result["gnn"]["ogb_products"] = {
+        "run": False, "edge_state_bytes": edge_state,
+        "carried_edge_states_bytes": edge_state * layers,
+        "why": "one [E, 70] float32 edge state is 17.3 GB; 16 layers of "
+               "them are kept for backward: a shape spec until sharded "
+               "training exists"}
+    return result, keep
+
+
+def embedding_bag_backward_row(args, launches, err):
+    """B3-bwd at phase T's train_batch inputs (its checks ran there):
+    times of the wrapper (sort, zero gradient, one launch), of the launch
+    with its zero fill on sorted inputs, of the zero fill alone, of the
+    plain version on the card and of the backward of
+    ``F.embedding_bag(..., mode="sum", per_sample_weights=mask)``; the
+    bound counts the dense ``[V, E]`` gradient written once, the ids,
+    mask and output gradient read once."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import embedding_bag as EB
+
+    grad, ids, mask, v, f, field_rows = args
+    n, m = ids.shape
+    e = grad.shape[1]
+    before = EB.BACKWARD_LAUNCHES
+    EB.embedding_bag_fixed_backward(*args)
+    per_call = EB.BACKWARD_LAUNCHES - before
+    check(per_call == 1, f"B3-bwd launched {per_call} kernels a call")
+    prepared = EB.prepare_backward(ids, f, field_rows)
+    rows = EB._fixed_rows(ids, f, field_rows)
+    table = torch.zeros((v, e), device=grad.device, requires_grad=True)
+    lib_out = F.embedding_bag(rows, table, mode="sum",
+                              per_sample_weights=mask.to(torch.float32))
+    nbytes = v * e * 4 + n * m * 5 + n * e * 4
+    flops = 2 * n * m * e
+    row = dict(
+        name="embedding_bag_backward", route="cuda",
+        source="src/repro_torch/csrc/embedding_bag.cu",
+        replaces="none: port-only (the JAX package trains without its "
+                 "Pallas kernel, src/repro/models/embedding.py:50-73)",
+        launches=launches, kernel_launches_per_call=per_call,
+        max_abs_err=err,
+        ms=time_ms(lambda: EB.embedding_bag_fixed_backward(*args),
+                   iters=10),
+        launch_with_zero_fill_ms=time_ms(lambda: EB.launch_backward(
+            grad, mask, m, v, *prepared), iters=10),
+        zero_fill_ms=time_ms(lambda: torch.zeros((v, e),
+                                                 device=grad.device),
+                             iters=10),
+        plain_ms=time_ms(
+            lambda: EB.embedding_bag_fixed_backward_plain(*args), iters=10),
+        shape=[v, e, n * m, n],
+        bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S)
+        * 1e3,
+        bound_by="bytes" if nbytes / HBM_BYTES_PER_S
+        >= flops / FP32_FLOPS_PER_S else "operations",
+        library_ms=time_ms(lambda: torch.autograd.grad(
+            lib_out, table, grad, retain_graph=True), iters=10))
+    del lib_out, table
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2416,6 +2828,7 @@ def main(argv=None) -> int:
     timed(phase_arch, "cuda", paper, deep)
     timed(phase_service, "cuda", sweep["data"], args.seed)
     timed(phase_cluster, "cuda", sweep["data"], args.seed)
+    out_t, train = timed(phase_train, "cuda", args.seed)
     launches = {"fused_measures": out_b["launches"]["fused_measures"],
                 "fused_measures_sweep": out_f["launches"]["fused_measures"],
                 "fused_measures_deep":
@@ -2425,6 +2838,10 @@ def main(argv=None) -> int:
                 "embedding_bag": out_e["launches"]["embedding_bag"]}
     t0 = time.perf_counter()
     rows = phase_kernels(paper, deep, recsys, sweep, launches)
+    rows.append(embedding_bag_backward_row(
+        train["b3_backward"],
+        train["xdeepfm_launches"]["embedding_bag_backward"],
+        out_t["b3_backward"]["max_abs_err"]))
     emit({"phase": "D", "seconds": time.perf_counter() - t0})
     emit({"kernels": rows})
     print(card, flush=True)

@@ -5,6 +5,8 @@ docno (descending lexicographic order — the *larger* docno wins).  The
 evaluator precomputes, per query, a ``tiebreak`` integer for every retrieved
 document: the rank of its docno in descending lexicographic order (0 wins
 ties).  Dense in-loop callers use the candidate index as the tiebreak.
+:func:`ranks_of` gives every entry's rank, :func:`gold_rank` one entry's
+rank without a sort (the GNN and LM steps' in-loop metrics).
 
 torch has no multi-key sort, so :func:`rank_sort` packs ``(-score,
 tiebreak)`` into ONE int64 key whose signed order is the lexicographic
@@ -54,3 +56,38 @@ def rank_sort(scores, tiebreak, mask, *payload):
     order = torch.sort(sort_key(scores, tiebreak, mask), dim=-1,
                        stable=True).indices
     return tuple(torch.gather(x, -1, order) for x in (mask,) + payload)
+
+
+def ranks_of(scores, tiebreak, mask) -> torch.Tensor:
+    """1-based rank of every entry under trec_eval ordering (int32; the
+    ranks of padding follow the real entries', up to D)."""
+    d = scores.shape[-1]
+    idx = torch.arange(d, dtype=torch.int64,
+                       device=scores.device).expand(scores.shape)
+    (_, sorted_idx) = rank_sort(scores, tiebreak, mask, idx)
+    pos = torch.arange(1, d + 1, dtype=torch.int32,
+                       device=scores.device).expand(scores.shape)
+    return torch.zeros(scores.shape, dtype=torch.int32,
+                       device=scores.device).scatter(-1, sorted_idx, pos)
+
+
+def gold_rank(scores, gold_index, tiebreak=None) -> torch.Tensor:
+    """Rank (1-based, int32) of ``gold_index`` in a score vector under
+    trec_eval's tie rule, by compare-and-count (no sort).
+
+    A document ranks above gold if its score is strictly greater, or equal
+    with a smaller tiebreak value.  The default tiebreak is the index.
+
+    >>> gold_rank(torch.tensor([[0.5, 0.9, 0.5]]), torch.tensor([2]))
+    tensor([3], dtype=torch.int32)
+    """
+    d = scores.shape[-1]
+    if tiebreak is None:
+        tiebreak = torch.arange(d, dtype=torch.int32, device=scores.device)
+    tiebreak = tiebreak.expand(scores.shape)
+    gold = gold_index.long()[..., None]
+    gold_score = torch.gather(scores, -1, gold)
+    gold_tb = torch.gather(tiebreak, -1, gold)
+    above = (scores > gold_score) | ((scores == gold_score)
+                                     & (tiebreak < gold_tb))
+    return torch.sum(above, dim=-1, dtype=torch.int32) + 1

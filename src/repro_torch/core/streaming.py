@@ -14,13 +14,14 @@ Usage inside a loop::
     means = metric_finalize(state)               # dict of scalars
 
 The state lives on the batches' device; nothing is copied to the host until
-the caller reads the means.  ``rank_metrics`` (the LM and GNN steps' gold-rank
-metrics) is not ported yet.
+the caller reads the means.  :func:`rank_metrics` gives the GNN (and LM)
+train steps' metrics from gold ranks (``core.sorting.gold_rank``), with no
+sort.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -107,3 +108,37 @@ def metric_finalize(state: MetricState) -> Dict[str, torch.Tensor]:
     """Means over all accumulated queries."""
     denom = torch.clamp(state["__count"], min=1.0)
     return {k: v / denom for k, v in state.items() if k != "__count"}
+
+
+# ---------------------------------------------------------------------------
+# Cheap in-loop metrics from gold ranks (GNN / LM / sequential recsys path).
+# ---------------------------------------------------------------------------
+
+
+def rank_metrics(gold_ranks: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None,
+                 ks: Tuple[int, ...] = (1, 5, 10)) -> Dict[str, torch.Tensor]:
+    """MRR, NDCG and success@k from 1-based gold-item ranks (no sort).
+
+    The single-relevant-document case of trec_eval's measures:
+    ``recip_rank == 1/rank``, ``success_k == rank <= k``,
+    ``ndcg == 1/log2(rank+1)``; means over the entries ``mask`` keeps (at
+    least 1).  Used for the next-item / node-class evaluation fused into
+    the train step.
+
+    >>> r = rank_metrics(torch.tensor([1, 2, 20]))
+    >>> round(float(r["recip_rank"]), 4), float(r["success_5"])
+    (0.5167, 0.6666666865348816)
+    """
+    r = gold_ranks.to(torch.float32)
+    if mask is None:
+        mask = torch.ones_like(r, dtype=torch.bool)
+    m = mask.to(torch.float32)
+    n = torch.clamp(torch.sum(m), min=1.0)
+    out = {
+        "recip_rank": torch.sum(m / r) / n,
+        "ndcg": torch.sum(m / torch.log2(r + 1.0)) / n,
+    }
+    for k in ks:
+        out[f"success_{k}"] = torch.sum(m * (r <= k)) / n
+    return out

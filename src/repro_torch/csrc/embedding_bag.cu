@@ -35,6 +35,25 @@
 // memory system moves, so the practical floor lies above that count.
 // Table rows are addressed with 64-bit arithmetic: tables of 10^9 rows
 // overflow 32-bit offsets.
+//
+// The backward of the fixed-length entry (embedding_bag_fixed_backward_launch,
+// at the end) replaces no Pallas kernel: the JAX package's training path
+// gathers without its kernel (repro/models/embedding.py, use_kernel=False)
+// and XLA forms the scatter.  It computes the table's gradient,
+// d_table[row] = sum over the lookups (n, j) with row(n, j) == row, in
+// lookup order, of d_out[n] * mask[n, j].  A float atomicAdd per lookup
+// would sum a row in whatever order the lookups arrive, so two launches
+// could differ in the last bits.  Instead the wrapper stable-sorts the
+// flattened rows (torch.sort), which puts the lookups of one row next to
+// each other in lookup order; the thread of (sorted position i, column c)
+// at the start of a run of equal rows walks the run, adds in that order
+// with the forward's rounding (multiply, round, add, round), and writes the
+// row once.  Threads off a run's start return at once.  Deterministic: the
+// same inputs give the same bits on every launch.  Rows never touched keep
+// the zeros the wrapper allocated.  Bound on this card: bytes, dominated by
+// the dense [V, E] gradient the function returns (written once); the
+// kernel's own traffic is the sorted rows and order (16 B a lookup), the
+// mask byte and one d_out row read per lookup.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -189,6 +208,38 @@ void launch_fixed_m(const float* table, long long v, int e, const int* ids,
   }
 }
 
+// One thread per (sorted lookup i, column c); only a run's first thread
+// works.  rows: [l] sorted (stable) table rows; order: [l] the lookups'
+// positions n·m + j in that order; d_out: [n_bags, e]; d_table: [v, e],
+// zero on entry, each touched row written once.
+__global__ void __launch_bounds__(kThreads)
+    embedding_bag_fixed_backward_kernel(
+        const long long* __restrict__ rows,
+        const long long* __restrict__ order,
+        const float* __restrict__ d_out,
+        const unsigned char* __restrict__ mask, long long l, int m, int e,
+        long long v_rows, float* __restrict__ d_table) {
+  const long long t =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= l * e) return;
+  const long long i = t / e;
+  const int col = static_cast<int>(t - i * e);
+  const long long row = rows[i];
+  if (i > 0 && rows[i - 1] == row) return;  // not the start of a run
+  if (static_cast<unsigned long long>(row) >=
+      static_cast<unsigned long long>(v_rows)) {
+    __trap();
+  }
+  float acc = 0.0f;
+  for (long long k = i; k < l && rows[k] == row; ++k) {
+    const long long pos = order[k];
+    const float g = __ldg(d_out + (pos / m) * e + col);
+    const float w = mask ? (mask[pos] ? 1.0f : 0.0f) : 1.0f;
+    acc = __fadd_rn(acc, __fmul_rn(g, w));
+  }
+  d_table[row * e + col] = acc;
+}
+
 }  // namespace
 
 // table: [v, e] f32; idx, w: [l] i32 / f32, sorted by bag (stable);
@@ -233,6 +284,29 @@ extern "C" int embedding_bag_fixed_launch(const float* table, long long v,
       launch_fixed_m<1>(table, v, e, ids, mask, n_bags, m, fields,
                         field_rows, out, st);
     }
+    ++*launched;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The gradient of embedding_bag_fixed_launch with respect to the table.
+// rows: [l] i64, the lookups' table rows (ids plus their field offsets),
+// stable-sorted; order: [l] i64, position n·m + j of each sorted lookup;
+// d_out: [n_bags, e] f32; mask: [n_bags, m] bool, or null (every lookup
+// weighs 1); d_table: [v, e] f32, zero on entry.  Launches on `stream`, sets
+// *launched to the number of kernels launched; returns cudaGetLastError().
+extern "C" int embedding_bag_fixed_backward_launch(
+    const long long* rows, const long long* order, const float* d_out,
+    const unsigned char* mask, long long l, int m, int e, long long v,
+    float* d_table, void* stream, int* launched) {
+  *launched = 0;
+  const long long total = l * e;
+  if (total > 0) {
+    const long long blocks = (total + kThreads - 1) / kThreads;
+    embedding_bag_fixed_backward_kernel<<<
+        static_cast<unsigned int>(blocks), kThreads, 0,
+        static_cast<cudaStream_t>(stream)>>>(rows, order, d_out, mask, l, m,
+                                            e, v, d_table);
     ++*launched;
   }
   return static_cast<int>(cudaGetLastError());

@@ -19,6 +19,18 @@ Each launches the kernel for a CUDA tensor and uses its plain version
 (:func:`embedding_bag_fixed_plain`, :func:`embedding_bag_plain`) only for
 a CPU tensor.  ``LAUNCHES`` counts the kernel launches of both, as their
 C entry points report them.
+
+Training differentiates the fixed-length entry through
+:func:`embedding_bag_fixed_grad`, a ``torch.autograd.Function`` whose
+forward is :func:`embedding_bag_fixed` and whose backward is
+:func:`embedding_bag_fixed_backward`: the table's gradient, each bag's
+gradient row times its mask entry added into the rows of its lookups, in
+lookup order.  On the card that is a second kernel of
+``csrc/embedding_bag.cu`` (``embedding_bag_fixed_backward_launch``; it
+replaces no Pallas kernel, since the JAX package trains without its
+kernel and lets XLA form the scatter), deterministic bit for bit;
+``BACKWARD_LAUNCHES`` counts its launches.  On the CPU it is
+:func:`embedding_bag_fixed_backward_plain`.
 """
 
 from __future__ import annotations
@@ -31,6 +43,8 @@ from repro_torch.kernels import _build
 
 #: kernel launches since the count was last set to 0 (plain calls excluded)
 LAUNCHES = 0
+#: launches of the backward kernel, counted the same way
+BACKWARD_LAUNCHES = 0
 
 _MAX_BLOCKS = 2**31 - 1
 _THREADS = 256
@@ -78,10 +92,13 @@ def _lib(entry="embedding_bag_launch"):
     fn = getattr(_build.load("embedding_bag"), entry)
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = (
-            [p, p, p, p, p, ll, i, p] if entry == "embedding_bag_launch"
-            else [p, ll, i, p, p, ll, i, i, ll, i, p, p]) + [
-                ctypes.POINTER(ctypes.c_int)]
+        fn.argtypes = {
+            "embedding_bag_launch": [p, p, p, p, p, ll, i, p],
+            "embedding_bag_fixed_launch": [p, ll, i, p, p, ll, i, i, ll, i,
+                                           p, p],
+            "embedding_bag_fixed_backward_launch": [p, p, p, p, ll, i, i,
+                                                    ll, p, p],
+        }[entry] + [ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
     return fn
 
@@ -238,3 +255,128 @@ def embedding_bag_fixed(table: torch.Tensor, ids: torch.Tensor,
     global LAUNCHES
     LAUNCHES += launched.value
     return out
+
+
+def _fixed_rows(ids, fields: int, field_rows: int) -> torch.Tensor:
+    """``[N, m]`` int64 table rows of fixed-length bags: ids plus
+    ``(n % fields) · field_rows``."""
+    rows = ids.long()
+    if field_rows and ids.numel():
+        rows = rows + _field_rows(ids.shape[0], fields, field_rows,
+                                  ids.device)
+    return rows
+
+
+def embedding_bag_fixed_backward_plain(grad, ids, mask, num_rows: int,
+                                       fields: int = 1, field_rows: int = 0):
+    """The table's gradient ``[num_rows, E]``: ``grad[n] · mask[n, j]``
+    added into row ``row(n, j)`` with ``index_add_``, which on the CPU
+    adds in lookup order from zero, one rounded operation at a time, as
+    the kernel does (on CUDA it adds with atomics, in no fixed order)."""
+    n, m = ids.shape
+    e = grad.shape[1]
+    x = grad[:, None, :].expand(n, m, e)
+    if mask is not None:
+        x = x * mask.to(grad.dtype)[..., None]
+    out = torch.zeros((num_rows, e), dtype=grad.dtype, device=grad.device)
+    return out.index_add_(0, _fixed_rows(ids, fields, field_rows).reshape(-1),
+                          x.reshape(n * m, e))
+
+
+def embedding_bag_fixed_backward(grad: torch.Tensor, ids: torch.Tensor,
+                                 mask: torch.Tensor | None, num_rows: int,
+                                 fields: int = 1,
+                                 field_rows: int = 0) -> torch.Tensor:
+    """Gradient of :func:`embedding_bag_fixed` with respect to its table
+    ``[num_rows, E]``, given ``grad`` ``[N, E]`` of its output.
+
+    A CUDA tensor goes through the backward kernel: the wrapper
+    stable-sorts the flattened rows (no host sync), allocates the zero
+    gradient, and one launch writes every touched row, summed in lookup
+    order (the same bits on every launch).  A row outside
+    ``[0, num_rows)`` stops the kernel with a device-side trap.  A CPU
+    tensor goes through :func:`embedding_bag_fixed_backward_plain`."""
+    if grad.dim() != 2 or ids.dim() != 2 or grad.shape[0] != ids.shape[0]:
+        raise ValueError(f"grad must be [N, E] and ids [N, m], got "
+                         f"{tuple(grad.shape)} and {tuple(ids.shape)}")
+    if mask is not None and (mask.shape != ids.shape
+                             or mask.dtype != torch.bool):
+        raise ValueError("mask must be a bool [N, m] like ids")
+    tensors = [grad, ids] + ([] if mask is None else [mask])
+    if any(t.device != grad.device for t in tensors):
+        raise ValueError("grad, ids and mask must lie on one device")
+    if grad.device.type == "cpu":
+        return embedding_bag_fixed_backward_plain(grad, ids, mask, num_rows,
+                                                  fields, field_rows)
+    if grad.device.type != "cuda":
+        raise ValueError(f"unsupported device {grad.device}")
+    if grad.dtype != torch.float32 or not grad.is_contiguous():
+        raise ValueError("grad must be a contiguous float32 tensor")
+    if ids.is_floating_point():
+        raise ValueError("ids must be an integer tensor")
+    if mask is not None and not mask.is_contiguous():
+        raise ValueError("mask must be contiguous")
+    n, m = ids.shape
+    e = grad.shape[1]
+    if n == 0 or m == 0 or e == 0:
+        return torch.zeros((num_rows, e), dtype=torch.float32,
+                           device=grad.device)
+    if -(-n * m * e // _THREADS) > _MAX_BLOCKS:
+        raise ValueError(f"{n * m} lookups x {e} columns exceed one grid")
+    return launch_backward(grad, mask, m, num_rows,
+                           *prepare_backward(ids, fields, field_rows))
+
+
+def prepare_backward(ids, fields: int = 1, field_rows: int = 0):
+    """The backward kernel's inputs: the lookups' table rows stable-sorted
+    (int64 ``[N·m]``) and each one's position ``n·m + j``."""
+    return torch.sort(_fixed_rows(ids, fields, field_rows).reshape(-1),
+                      stable=True)
+
+
+def launch_backward(grad, mask, m: int, num_rows: int, rows, order):
+    """One backward kernel launch on prepared inputs (see
+    :func:`prepare_backward`) into a new zero ``[num_rows, E]``."""
+    global BACKWARD_LAUNCHES
+    e = grad.shape[1]
+    out = torch.zeros((num_rows, e), dtype=torch.float32, device=grad.device)
+    launched = ctypes.c_int(0)
+    with torch.cuda.device(grad.device):
+        stream = torch.cuda.current_stream(grad.device).cuda_stream
+        rc = _lib("embedding_bag_fixed_backward_launch")(
+            rows.data_ptr(), order.data_ptr(), grad.data_ptr(),
+            0 if mask is None else mask.data_ptr(), rows.numel(), m, e,
+            num_rows, out.data_ptr(), stream, ctypes.byref(launched))
+    if rc != 0:
+        raise RuntimeError(
+            f"embedding_bag backward kernel launch failed: CUDA error {rc}")
+    BACKWARD_LAUNCHES += launched.value
+    return out
+
+
+class _EmbeddingBagFixed(torch.autograd.Function):
+    """:func:`embedding_bag_fixed` with a gradient for its table."""
+
+    @staticmethod
+    def forward(ctx, table, ids, mask, fields, field_rows):
+        ctx.save_for_backward(ids, mask)
+        ctx.shape = (table.shape[0], fields, field_rows)
+        return embedding_bag_fixed(table, ids, mask, fields, field_rows)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ids, mask = ctx.saved_tensors
+        num_rows, fields, field_rows = ctx.shape
+        d_table = embedding_bag_fixed_backward(grad.contiguous(), ids, mask,
+                                               num_rows, fields, field_rows)
+        return d_table, None, None, None, None
+
+
+def embedding_bag_fixed_grad(table: torch.Tensor, ids: torch.Tensor,
+                             mask: torch.Tensor | None = None,
+                             fields: int = 1,
+                             field_rows: int = 0) -> torch.Tensor:
+    """:func:`embedding_bag_fixed` recorded for autograd: its backward
+    gives the table the gradient of :func:`embedding_bag_fixed_backward`
+    (ids and mask get none)."""
+    return _EmbeddingBagFixed.apply(table, ids, mask, fields, field_rows)

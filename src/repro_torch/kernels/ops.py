@@ -41,6 +41,15 @@ def embedding_bag_fixed(table: torch.Tensor, ids: torch.Tensor,
     return _eb.embedding_bag_fixed(table, ids, mask, fields, field_rows)
 
 
+def embedding_bag_fixed_grad(table: torch.Tensor, ids: torch.Tensor,
+                             mask: torch.Tensor | None = None,
+                             fields: int = 1,
+                             field_rows: int = 0) -> torch.Tensor:
+    """:func:`embedding_bag_fixed` with a gradient for ``table`` (the
+    backward kernel on CUDA, its plain version on the CPU)."""
+    return _eb.embedding_bag_fixed_grad(table, ids, mask, fields, field_rows)
+
+
 def fused_measures_cols(rel_sorted, judged_sorted, scalars,
                         relevance_level: float = 1.0) -> torch.Tensor:
     """All fused measure columns, ``[Q, 64]`` f32."""

@@ -3,9 +3,9 @@
 The counterpart of ``repro.launch.api``.  Each ``configs/<id>.py`` exposes
 ``ARCH: ArchDef``.  An ArchDef knows how to build its full (paper-exact)
 and smoke (reduced) model configs, and how to build the step function of
-each of its shapes on one device: the four recsys archs and the paper's
-own evaluator (``pytrec-eval``, family ``eval``).  ``list_archs`` covers only the archs
-the port has.
+each of its shapes on one device: the four recsys archs, GatedGCN
+(family ``gnn``) and the paper's own evaluator (``pytrec-eval``, family
+``eval``).  ``list_archs`` covers only the archs the port has.
 """
 
 from __future__ import annotations
@@ -42,19 +42,25 @@ class StepBundle:
 
     ``arg_specs`` mirrors ``step_fn``'s positional arguments as trees of
     :class:`TensorSpec`: the module's parameters by name first (the JAX
-    step's ``params`` slot), then the inputs.  Inputs are expected on
-    ``device``.
+    step's ``params`` slot), then for a ``train`` kind the optimizer state
+    (``train.optimizer.OptState``), then the inputs.  Inputs are expected
+    on ``device``.  A ``train`` step is ``step_fn(model, opt_state,
+    batch) → (model, opt_state, metrics)``: the model's parameters are
+    updated in place, ``metrics`` holds 0-d tensors on the device.
     """
 
     step_fn: Callable
     arg_specs: Tuple
     device: torch.device
+    #: ``train`` kinds: ``init_opt(params) → OptState`` (the optimizer's
+    #: zero state on the parameters' device), the step's second argument
+    init_opt: Optional[Callable] = None
 
 
 @dataclasses.dataclass
 class ArchDef:
     name: str
-    family: str  # recsys | eval (lm and gnn are not ported yet)
+    family: str  # recsys | gnn | eval (lm is not ported yet)
     shapes: Dict[str, ShapeSpec]
     make_config: Callable[[bool], Any]  # (smoke: bool) -> model config
     # (cfg, shape, device=None) -> StepBundle; None → CUDA
@@ -86,8 +92,8 @@ def _load_all() -> None:
     # Import for side effect: each module registers its ARCH.  Always run
     # (a module imported directly registers only itself; a repeated
     # import is a dictionary lookup).
-    from repro_torch.configs import (autoint, mind, pytrec_paper,  # noqa
-                                     sasrec, xdeepfm)
+    from repro_torch.configs import (autoint, gatedgcn, mind,  # noqa
+                                     pytrec_paper, sasrec, xdeepfm)
 
 
 _NP_TO_TORCH = {np.dtype(np.int32): torch.int32,

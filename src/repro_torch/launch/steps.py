@@ -1,16 +1,22 @@
-"""RecSys serve and retrieval steps with in-loop evaluation.
+"""Family step builders: recsys train / serve / retrieval and GNN train.
 
-The counterpart of ``repro.launch.steps`` for the recsys family, ``serve``
-and ``retrieval`` kinds.  As in the JAX package, ranking metrics are
-computed inside the step from the scores already on the device (the port's
-``core.measures``), so evaluation never crosses the host boundary: only
-the metric scalars do.  Retrieval ranks with the port's top-k kernel
+The counterpart of ``repro.launch.steps`` for the recsys and GNN
+families.  As in the JAX package, ranking metrics are computed inside the
+step from the scores already on the device (the port's ``core.measures``
+for slates, ``core.sorting.gold_rank`` and ``core.streaming.rank_metrics``
+in the GNN train step), so evaluation never crosses the host boundary:
+only the metric scalars do.  Retrieval ranks with the port's top-k kernel
 (``kernels.ops.topk``: ``lax.top_k``'s order, ties to the lower index)
 where the JAX step calls ``lax.top_k``.
 
-Each step takes the model (an ``nn.Module`` from ``models.recsys``) in the
-JAX step's ``params`` slot, with the same remaining arguments, and runs
-under ``torch.inference_mode``.
+Each step takes the model (an ``nn.Module``) in the JAX step's ``params``
+slot, with the same remaining arguments.  Serve and retrieval steps run
+under ``torch.inference_mode``.  A train step is ``step_fn(model,
+opt_state, batch) → (model, opt_state, metrics)`` with JAX's optimizer
+(``train.optimizer.adamw``) and JAX's metric keys; it updates the model's
+parameters in place, leaves their gradients in ``.grad`` until the next
+step, and reads nothing back to the host.  ``bundle.init_opt(model)``
+gives the optimizer's first state.
 """
 
 from __future__ import annotations
@@ -20,10 +26,14 @@ from typing import Dict
 import torch
 
 from repro_torch.core import measures as M
+from repro_torch.core import sorting, streaming
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.launch.api import ShapeSpec, StepBundle, TensorSpec
+from repro_torch.models import gnn as gnn_lib
+from repro_torch.models import layers as L
 from repro_torch.models import recsys as rec_lib
+from repro_torch.train import optimizer as opt_lib
 
 I32 = torch.int32
 F32 = torch.float32
@@ -56,10 +66,35 @@ def _slate_scores(kind, cfg, params, batch, cand):
     return torch.max(torch.einsum("bkd,bsd->bks", caps, ce), dim=1).values
 
 
+def _grads(model) -> Dict[str, torch.Tensor]:
+    """Every parameter's gradient by name (zeros where none reached it,
+    as JAX's ``grad`` gives)."""
+    return {n: p.grad if p.grad is not None else torch.zeros_like(p)
+            for n, p in model.named_parameters()}
+
+
+def _spec_tree(tree):
+    if isinstance(tree, torch.Tensor):
+        return TensorSpec(tuple(tree.shape), tree.dtype)
+    if isinstance(tree, dict):
+        return {k: _spec_tree(v) for k, v in tree.items()}
+    return type(tree)(*(_spec_tree(v) for v in tree))
+
+
+def _opt_specs(init_opt, params: Dict[str, TensorSpec]):
+    """The optimizer state's specs, from its init on ``meta`` tensors."""
+    return _spec_tree(init_opt({n: torch.empty(s.shape, dtype=s.dtype,
+                                                device="meta")
+                                for n, s in params.items()}))
+
+
 def param_specs(kind: str, cfg) -> Dict[str, TensorSpec]:
     """The model's parameters by name, as specs (built on ``meta``: no
     memory is allocated)."""
-    model = MODELS[kind](cfg, device="meta")
+    return _module_specs(MODELS[kind](cfg, device="meta"))
+
+
+def _module_specs(model) -> Dict[str, TensorSpec]:
     return {n: TensorSpec(tuple(p.shape), p.dtype)
             for n, p in model.named_parameters()}
 
@@ -96,10 +131,19 @@ def recsys_step_bundle(kind: str, cfg, shape: ShapeSpec,
     params = param_specs(kind, cfg)
 
     if shape.kind == "train":
-        raise NotImplementedError(
-            "recsys training is not ported yet (ROADMAP Queue A, "
-            "\"Recsys training\": optimizer, gradients through the "
-            "EmbeddingBag kernel)")
+        b = shape.get("batch")
+        init_opt, update = opt_lib.adamw(opt_lib.OptimizerConfig(lr=1e-3))
+
+        def train_step(params, opt_state, batch):
+            params.zero_grad(set_to_none=True)
+            loss = rec_lib.loss_and_grad(kind, params, batch, cfg)
+            params, opt_state, info = update(_grads(params), opt_state,
+                                             params)
+            return params, opt_state, {"loss": loss, **info}
+
+        return StepBundle(train_step, (params, _opt_specs(init_opt, params),
+                                       _input_specs(kind, cfg, b)), dev,
+                          init_opt=init_opt)
 
     if shape.kind == "serve":
         b = shape.get("batch")
@@ -167,3 +211,73 @@ def recsys_step_bundle(kind: str, cfg, shape: ShapeSpec,
         return StepBundle(serve, arg_specs, dev)
 
     raise ValueError(f"unsupported recsys shape kind {shape.kind}")
+
+
+# ===========================================================================
+# GNN family
+# ===========================================================================
+
+
+def _gnn_input_specs(cfg: gnn_lib.GatedGCNConfig, shape: ShapeSpec):
+    n, e = shape.get("n_nodes"), shape.get("n_edges")
+    out = {"node_feat": TensorSpec((n, cfg.d_in), F32),
+           "edge_feat": TensorSpec((e, cfg.d_edge_in), F32),
+           "src": TensorSpec((e,), I32), "dst": TensorSpec((e,), I32),
+           "labels": TensorSpec((n,), I32),
+           "node_mask": TensorSpec((n,), BOOL),
+           "edge_mask": TensorSpec((e,), BOOL)}
+    if shape.get("graph_task", False):
+        out["graph_ids"] = TensorSpec((n,), I32)
+        out["graph_labels"] = TensorSpec((shape.get("n_graphs"),), I32)
+    return out
+
+
+def gnn_step_bundle(cfg: gnn_lib.GatedGCNConfig, shape: ShapeSpec,
+                    device=None) -> StepBundle:
+    """GatedGCN's ``train`` step at ``shape`` on ``device`` (default CUDA;
+    raises without it): the node task (cross-entropy over the masked
+    nodes; a batch may carry a ``train_mask``) or the graph task (logits
+    mean-pooled per graph), each with the gold class's rank
+    (``sorting.gold_rank``) and ``streaming.rank_metrics`` in the step."""
+    if shape.kind != "train":
+        raise ValueError(f"unsupported GNN shape kind {shape.kind}")
+    dev = resolve_device(device)
+    graph_task = shape.get("graph_task", False)
+    params = _module_specs(gnn_lib.GatedGCN(cfg, device="meta"))
+    init_opt, update = opt_lib.adamw(opt_lib.OptimizerConfig(lr=1e-3))
+
+    def train_step(params, opt_state, batch):
+        params.zero_grad(set_to_none=True)
+        with torch.enable_grad():
+            logits = gnn_lib.gatedgcn_forward(params, batch, cfg)
+            if graph_task:
+                # disjoint-union batch: mean-pool nodes per graph
+                n_graphs = shape.get("n_graphs")
+                node_mask = batch["node_mask"]
+                gids = batch["graph_ids"].long()
+                pooled = gnn_lib.segment_sum(
+                    logits * node_mask[:, None], gids, n_graphs)
+                cnt = gnn_lib.segment_sum(node_mask.to(F32), gids,
+                                          n_graphs)
+                pooled = pooled / torch.clamp(cnt, min=1.0)[:, None]
+                labels = batch["graph_labels"]
+                loss = L.cross_entropy(pooled, labels)
+                scores = pooled
+                mask = torch.ones_like(labels, dtype=BOOL)
+            else:
+                mask = batch["node_mask"] & batch.get("train_mask",
+                                                      batch["node_mask"])
+                labels = batch["labels"]
+                loss = L.cross_entropy(logits, labels, mask)
+                scores = logits
+            loss.backward()
+        ranks = sorting.gold_rank(scores.detach(), labels)
+        params, opt_state, info = update(_grads(params), opt_state, params)
+        metrics = {"loss": loss.detach(), **info,
+                   **streaming.rank_metrics(ranks.reshape(-1),
+                                            mask.reshape(-1))}
+        return params, opt_state, metrics
+
+    return StepBundle(train_step, (params, _opt_specs(init_opt, params),
+                                   _gnn_input_specs(cfg, shape)), dev,
+                      init_opt=init_opt)

@@ -1,4 +1,5 @@
-"""Recsys models in PyTorch (the port of ``repro.models``, recsys part).
+"""Recsys and GNN models in PyTorch (the port of ``repro.models``, recsys
+and GNN parts).
 
 Each model is an ``nn.Module`` built from its config on an explicit device
 with a ``torch.Generator``; parameter names and layouts follow the JAX

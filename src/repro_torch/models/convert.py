@@ -1,11 +1,14 @@
-"""Carry the JAX package's recsys weights into the port's modules.
+"""Carry the JAX package's weights and optimizer state into the port.
 
 The JAX package keeps parameters as a pytree of nested dicts and lists;
 the port's modules name theirs after the same paths (``cin.0``,
-``attn.1.wq``, ``blocks.wqkv``) with the same layouts, so carrying a
-pytree across is a copy.  The caller turns the pytree's leaves into numpy
-arrays first (``jax.tree.map(np.asarray, params)``); nothing here imports
-JAX.
+``attn.1.wq``, ``blocks.wqkv``, GatedGCN's stacked ``layers.w_node``
+``[L, D, 2D]``) with the same layouts, so carrying a pytree across is a
+copy.  JAX's optimizer state keeps m and v as flat lists in
+``jax.tree.leaves`` order; :func:`load_jax_opt_state` keys them by the
+parameter names of that order.  The caller turns the pytrees' leaves into
+numpy arrays first (``jax.tree.map(np.asarray, tree)``); nothing here
+imports JAX.
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 from torch import nn
+
+from repro_torch.train import optimizer as opt_lib
 
 
 def flatten_params(params: Any, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -52,3 +57,40 @@ def load_jax_params(module: nn.Module, params: Any) -> nn.Module:
             src = torch.from_numpy(np.array(flat[name], order="C"))
             p.copy_(src.to(p.dtype))
     return module
+
+
+def _tensor(x, device, dtype=None) -> torch.Tensor:
+    arr = np.array(x, order="C")
+    if arr.dtype.name == "bfloat16":  # ml_dtypes: carry the bits across
+        t = torch.from_numpy(arr.view(np.uint16).astype(np.int16)).view(
+            torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr)
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def load_jax_opt_state(params_jax: Any, opt_state_jax: Any,
+                       device="cpu") -> opt_lib.OptState:
+    """JAX's ``OptState(step, m, v)`` (leaves as numpy arrays) → the
+    port's, keyed by parameter name: the i-th entry of JAX's flat lists
+    belongs to the i-th leaf of ``params_jax`` in ``jax.tree.leaves``
+    order (:func:`repro_torch.train.optimizer.leaf_order`).  A factored
+    second moment stays ``{"r": ..., "c": ...}``; m keeps its storage
+    type (float32 or bfloat16).  Raises ``ValueError`` if the lists and
+    the pytree differ in length or shape."""
+    names = opt_lib.leaf_order(flatten_params(params_jax))
+    step, m, v = opt_state_jax
+    if len(m) != len(names) or len(v) != len(names):
+        raise ValueError(f"{len(names)} parameters but {len(m)} m and "
+                         f"{len(v)} v entries")
+    flat = flatten_params(params_jax)
+    for name, mi in zip(names, m):
+        if np.shape(mi) != flat[name].shape:
+            raise ValueError(f"{name}: m shape {np.shape(mi)} != "
+                             f"{flat[name].shape}")
+    return opt_lib.OptState(
+        step=_tensor(step, device, torch.int32),
+        m={n: _tensor(mi, device) for n, mi in zip(names, m)},
+        v={n: ({k: _tensor(x, device) for k, x in vi.items()}
+               if isinstance(vi, dict) else _tensor(vi, device))
+           for n, vi in zip(names, v)})

@@ -86,14 +86,20 @@ def multi_hot_lookup_all(table, ids, mask, cfg: TableConfig,
     ``[B, F_mh, M]``) → ``[B, F_mh, dim]``.  Field f is
     :func:`multi_hot_lookup` of field f (its ids offset by
     ``f · vocab_per_field``, each bag summed in lookup order): one kernel
-    launch over the ``B · F_mh`` bags, which the layout already groups."""
+    launch over the ``B · F_mh`` bags, which the layout already groups.
+    With grad enabled and a table that requires grad, the call is
+    recorded for autograd, and the backward is one launch of the backward
+    kernel for every field."""
     if combiner not in ("sum", "mean"):
         raise ValueError(f"combiner must be 'sum' or 'mean', got "
                          f"{combiner!r}")
     b, f, m = ids.shape
-    out = ops.embedding_bag_fixed(table, ids.reshape(b * f, m),
-                                  mask.reshape(b * f, m), fields=f,
-                                  field_rows=cfg.vocab_per_field)
+    # under autograd a table that trains takes the differentiable entry
+    bag = (ops.embedding_bag_fixed_grad
+           if torch.is_grad_enabled() and table.requires_grad
+           else ops.embedding_bag_fixed)
+    out = bag(table, ids.reshape(b * f, m), mask.reshape(b * f, m), fields=f,
+              field_rows=cfg.vocab_per_field)
     out = out.reshape(b, f, table.shape[1])
     if combiner == "mean":  # a mask's count is exact in any order
         counts = mask.to(out.dtype).sum(-1, keepdim=True)

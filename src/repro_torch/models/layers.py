@@ -1,4 +1,4 @@
-"""Shared building blocks: the recsys models' part of
+"""Shared building blocks: the recsys and GNN models' part of
 ``repro.models.layers``."""
 
 from __future__ import annotations
@@ -30,3 +30,18 @@ def nonparam_layernorm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     mu = torch.mean(xf, dim=-1, keepdim=True)
     var = torch.var(xf, dim=-1, unbiased=False, keepdim=True)
     return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  label_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean cross-entropy over valid positions; logits ``[..., V]``
+    (log-sum-exp in float32), labels ``[...]`` int, ``label_mask``
+    ``[...]`` bool (the mean is over its True entries, at least 1)."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if label_mask is None:
+        return torch.mean(nll)
+    m = label_mask.to(torch.float32)
+    return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)

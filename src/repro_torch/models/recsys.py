@@ -1,8 +1,8 @@
 """RecSys architectures: SASRec, xDeepFM (CIN), MIND (capsules), AutoInt.
 
-The counterpart of ``repro.models.recsys``, serving only (training waits
-for the optimizer).  Shared anatomy: sparse embedding tables (the hot path,
-see ``embedding.py``) → feature-interaction op → small MLP → logit(s).
+The counterpart of ``repro.models.recsys``: scoring and the training
+losses.  Shared anatomy: sparse embedding tables (the hot path, see
+``embedding.py``) → feature-interaction op → small MLP → logit(s).
 
 Each model is an ``nn.Module`` built from its config on an explicit device
 with a ``torch.Generator``; its parameter names and layouts follow the JAX
@@ -20,6 +20,13 @@ runs over the batch axis in chunks of at most :data:`CHUNK_BYTES` of
 intermediates, so ``serve_bulk`` (262,144 rows) and CTR ``retrieval_cand``
 (10⁶ candidate rows) fit on one card; the sparse front end runs once per
 call.
+
+Training: ``sasrec_loss``, ``mind_loss`` and ``ctr_loss`` are the JAX
+losses on a whole batch.  :func:`loss_and_grad` is what the ``train``
+step runs: the same batch-mean loss and its gradient, with the sparse
+front end (every table lookup, B3 among them) run and differentiated once
+for the batch and the dense part in row chunks of at most
+:data:`TRAIN_CHUNK_BYTES` of saved activations (:data:`TRAIN_PARTS`).
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import dataclasses
 from typing import Callable, Dict
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.nn import Parameter as P
 
@@ -37,7 +45,19 @@ from repro_torch.models import layers as L
 
 #: the most bytes of per-row intermediates one chunk of a batch may hold
 CHUNK_BYTES = 4 << 30
+#: the same for a training chunk, whose activations backward keeps
+TRAIN_CHUNK_BYTES = 8 << 30
+#: a training row keeps about this many times a scoring row's
+#: intermediates (the saved activations and their gradients)
+TRAIN_ROW_FACTOR = 3
 _F32_BYTES = 4
+
+
+def _rows(table, ids):
+    """``table[ids]`` as one ``index_select`` (its backward is an
+    ``index_add_``, which needs no host sync)."""
+    return torch.index_select(table, 0, ids.reshape(-1).long()).reshape(
+        *ids.shape, table.shape[1])
 
 
 def _setup(device, generator):
@@ -117,10 +137,15 @@ def _sasrec_row_bytes(cfg: SASRecConfig) -> int:
 
 def sasrec_encode(params: SASRec, item_ids, cfg: SASRecConfig):
     """item_ids ``[B, S]`` → sequence representations ``[B, S, D]``
-    (causal).  The JAX package's ``scan`` over stacked blocks is a loop."""
-    b, s = item_ids.shape
+    (causal)."""
+    return _sasrec_blocks(params, _rows(params.item_emb, item_ids), cfg)
+
+
+def _sasrec_blocks(params: SASRec, x, cfg: SASRecConfig):
+    """Item embeddings ``[B, S, D]`` → sequence representations.  The JAX
+    package's ``scan`` over stacked blocks is a loop."""
+    b, s, _ = x.shape
     d = cfg.embed_dim
-    x = params.item_emb[item_ids.long()]
     x = x + params.pos_emb[None, :s]
     causal = torch.tril(torch.ones((s, s), dtype=torch.bool,
                                    device=x.device))
@@ -155,6 +180,33 @@ def sasrec_retrieval_scores(params: SASRec, batch, cfg: SASRecConfig):
     if "candidates" in batch:
         cand = params.item_emb[batch["candidates"].long()]
     return h @ cand.T
+
+
+def _sasrec_front(params: SASRec, batch, cfg: SASRecConfig):
+    return {k: _rows(params.item_emb, batch[k])
+            for k in ("items", "pos", "neg")}
+
+
+def _sasrec_loss_sum(params: SASRec, emb, batch, cfg: SASRecConfig):
+    """Σ over valid positions of the BCE of (next item, sampled
+    negative), from the front end's embeddings."""
+    h = _sasrec_blocks(params, emb["items"], cfg)  # [B, S, D]
+    pos_logit = torch.sum(h * emb["pos"], -1)
+    neg_logit = torch.sum(h * emb["neg"], -1)
+    m = batch["mask"].to(torch.float32)
+    loss = -(F.logsigmoid(pos_logit) + F.logsigmoid(-neg_logit))
+    return torch.sum(loss * m)
+
+
+def _sasrec_denominator(batch):
+    return torch.clamp(torch.sum(batch["mask"].to(torch.float32)), min=1.0)
+
+
+def sasrec_loss(params: SASRec, batch, cfg: SASRecConfig):
+    """BCE over (positive next item, sampled negative) — the paper's
+    loss, the mean over valid positions."""
+    return (_sasrec_loss_sum(params, _sasrec_front(params, batch, cfg),
+                             batch, cfg) / _sasrec_denominator(batch))
 
 
 # ===========================================================================
@@ -268,23 +320,30 @@ def _xdeepfm_dense(params: XDeepFM, emb):
     return cin_logit[:, 0] + deep_logit[:, 0]
 
 
+def _xdeepfm_row_bytes(cfg: CTRConfig) -> int:
+    t = cfg.table
+    widest = max((t.n_fields,) + tuple(cfg.cin_layers))
+    return _F32_BYTES * t.n_fields * t.dim * widest * 2
+
+
 def xdeepfm_score(params: XDeepFM, batch, cfg: CTRConfig):
     """pCTR logits ``[B]``.  The sparse front end runs once for the whole
     batch (one EmbeddingBag call per multi-hot field); the CIN and MLP run
     in row chunks (the CIN outer product is ``max(H)·F·D`` floats a row)."""
-    t = cfg.table
     emb = _sparse_features(params, batch, cfg)  # [B, F, D]
-    widest = max((t.n_fields,) + tuple(cfg.cin_layers))
-    row_bytes = _F32_BYTES * t.n_fields * t.dim * widest * 2
     dense = _by_rows(lambda bb: _xdeepfm_dense(params, bb["emb"]),
-                     {"emb": emb}, row_bytes)
-    ids = batch["ids"]
+                     {"emb": emb}, _xdeepfm_row_bytes(cfg))
+    return dense + _xdeepfm_linear(params, batch["ids"], cfg) + params.bias
+
+
+def _xdeepfm_linear(params: XDeepFM, ids, cfg: CTRConfig):
+    """The linear term ``[B]``: each field's weight, summed over fields."""
+    t = cfg.table
     offsets = torch.arange(t.n_fields, dtype=ids.dtype,
                            device=ids.device) * t.vocab_per_field
     rows = (ids + offsets[None]).reshape(-1)
-    lin_logit = torch.sum(
+    return torch.sum(
         torch.index_select(params.linear, 0, rows).reshape(ids.shape), -1)
-    return dense + lin_logit + params.bias
 
 
 # ===========================================================================
@@ -331,15 +390,18 @@ def _autoint_dense(params: AutoInt, x, cfg: CTRConfig):
     return (x.reshape(b, -1) @ params.head)[:, 0]
 
 
+def _autoint_row_bytes(cfg: CTRConfig) -> int:
+    f, width = cfg.table.n_fields, cfg.n_attn_heads * cfg.d_attn
+    return _F32_BYTES * f * (5 * width + 2 * cfg.n_attn_heads * f)
+
+
 def autoint_score(params: AutoInt, batch, cfg: CTRConfig):
     """pCTR logits ``[B]``: the sparse front end once for the batch, the
     attention layers in row chunks (q, k, v, the residual and the attention
     weights live at once)."""
-    f, width = cfg.table.n_fields, cfg.n_attn_heads * cfg.d_attn
-    row_bytes = _F32_BYTES * f * (5 * width + 2 * cfg.n_attn_heads * f)
     x = _sparse_features(params, batch, cfg)  # [B, F, D]
     return _by_rows(lambda bb: _autoint_dense(params, bb["x"], cfg),
-                    {"x": x}, row_bytes)
+                    {"x": x}, _autoint_row_bytes(cfg))
 
 
 # ===========================================================================
@@ -365,8 +427,13 @@ class MIND(nn.Module):
 
 
 def _mind_rows(params: MIND, batch, cfg: CTRConfig):
-    hist = params.item_emb[batch["hist"].long()]  # [B, T, D]
-    mask = batch["hist_mask"].to(torch.float32)  # [B, T]
+    return _mind_caps(params, _rows(params.item_emb, batch["hist"]),
+                      batch["hist_mask"], cfg)
+
+
+def _mind_caps(params: MIND, hist, hist_mask, cfg: CTRConfig):
+    """History embeddings ``[B, T, D]`` → interest capsules."""
+    mask = hist_mask.to(torch.float32)  # [B, T]
     b, t, d = hist.shape
     k = cfg.n_interests
     u = hist @ params.bilinear  # shared bilinear map S·e_i
@@ -388,10 +455,48 @@ def _mind_rows(params: MIND, batch, cfg: CTRConfig):
 def mind_interests(params: MIND, batch, cfg: CTRConfig):
     """Behavior sequence → K interest capsules ``[B, K, D]`` via B2I
     dynamic routing, in row chunks."""
-    t, d, k = cfg.hist_len, cfg.table.dim, cfg.n_interests
-    row_bytes = _F32_BYTES * (3 * t * d + 4 * k * t + 6 * k * d)
     user = {"hist": batch["hist"], "hist_mask": batch["hist_mask"]}
-    return _by_rows(lambda bb: _mind_rows(params, bb, cfg), user, row_bytes)
+    return _by_rows(lambda bb: _mind_rows(params, bb, cfg), user,
+                    _mind_row_bytes(cfg))
+
+
+def _mind_row_bytes(cfg: CTRConfig) -> int:
+    t, d, k = cfg.hist_len, cfg.table.dim, cfg.n_interests
+    return _F32_BYTES * (3 * t * d + 4 * k * t + 6 * k * d)
+
+
+def _mind_front(params: MIND, batch, cfg: CTRConfig):
+    return {k: _rows(params.item_emb, batch[k])
+            for k in ("hist", "pos", "negs")}
+
+
+def _mind_loss_sum(params: MIND, emb, batch, cfg: CTRConfig):
+    """Σ over rows of the sampled-softmax NLL of the positive item, with
+    label-aware attention (the interest most aligned with the label)."""
+    caps = _mind_caps(params, emb["hist"], batch["hist_mask"], cfg)
+    pos, negs = emb["pos"], emb["negs"]  # [B, D], [B, Nneg, D]
+    att = torch.einsum("bkd,bd->bk", caps, pos)
+    pick = torch.argmax(att, -1)[:, None, None].expand(-1, 1, caps.shape[-1])
+    best = torch.gather(caps, 1, pick)[:, 0]
+    pos_logit = torch.sum(best * pos, -1, keepdim=True)
+    neg_logit = torch.einsum("bd,bnd->bn", best, negs)
+    logits = torch.cat([pos_logit, neg_logit], -1).to(torch.float32)
+    return torch.sum(torch.logsumexp(logits, -1) - logits[:, 0])
+
+
+def _batch_rows(batch):
+    """The batch's row count as a float32 0-d tensor on its device."""
+    x = next(iter(batch.values()))
+    return torch.full((), float(x.shape[0]), dtype=torch.float32,
+                      device=x.device)
+
+
+def mind_loss(params: MIND, batch, cfg: CTRConfig):
+    """Sampled softmax with label-aware attention (hard max at train):
+    cross-entropy of the positive among it and the negatives, the mean
+    over rows."""
+    return (_mind_loss_sum(params, _mind_front(params, batch, cfg), batch,
+                           cfg) / _batch_rows(batch))
 
 
 def mind_retrieval_scores(params: MIND, batch, cfg: CTRConfig):
@@ -402,3 +507,122 @@ def mind_retrieval_scores(params: MIND, batch, cfg: CTRConfig):
         cand = params.item_emb[batch["candidates"].long()]
     scores = torch.einsum("bkd,nd->bkn", caps, cand)
     return torch.max(scores, dim=1).values
+
+
+# ===========================================================================
+# Shared CTR loss
+# ===========================================================================
+
+
+def _bce_with_logits(logits, labels):
+    lf = logits.to(torch.float32)
+    y = labels.to(torch.float32)
+    return torch.clamp(lf, min=0) - lf * y + torch.log1p(torch.exp(-lf.abs()))
+
+
+def ctr_loss(score_fn, params, batch, cfg: CTRConfig):
+    """Mean binary cross-entropy of the pCTR logits; returns
+    ``(loss, logits)``."""
+    logits = score_fn(params, batch, cfg)
+    return torch.mean(_bce_with_logits(logits, batch["labels"])), logits
+
+
+def _ctr_front(params, batch, cfg: CTRConfig):
+    return {"emb": _sparse_features(params, batch, cfg)}  # [B, F, D]
+
+
+def _xdeepfm_front(params: XDeepFM, batch, cfg: CTRConfig):
+    return {**_ctr_front(params, batch, cfg),
+            "lin": _xdeepfm_linear(params, batch["ids"], cfg)}
+
+
+def _xdeepfm_loss_sum(params: XDeepFM, emb, batch, cfg: CTRConfig):
+    logits = _xdeepfm_dense(params, emb["emb"]) + emb["lin"] + params.bias
+    return torch.sum(_bce_with_logits(logits, batch["labels"]))
+
+
+def _autoint_loss_sum(params: AutoInt, emb, batch, cfg: CTRConfig):
+    logits = _autoint_dense(params, emb["emb"], cfg)
+    return torch.sum(_bce_with_logits(logits, batch["labels"]))
+
+
+# ===========================================================================
+# Training: the sparse front end once, the dense part in row chunks
+# ===========================================================================
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainParts:
+    """A recsys loss split where :func:`loss_and_grad` cuts it.
+
+    * ``front(params, batch, cfg)`` → ``{name: [B, ...]}``: every table
+      lookup of the batch (recorded for autograd);
+    * ``loss_sum(params, emb, batch, cfg)``: the sum of the rows' loss
+      terms, given the front end's outputs for those rows;
+    * ``denominator(batch)``: the batch mean's divisor (0-d);
+    * ``row_bytes(cfg)``: a scoring row's intermediates, in bytes.
+    """
+
+    front: Callable
+    loss_sum: Callable
+    denominator: Callable
+    row_bytes: Callable
+
+
+TRAIN_PARTS = {
+    "sasrec": TrainParts(_sasrec_front, _sasrec_loss_sum, _sasrec_denominator,
+                         _sasrec_row_bytes),
+    "mind": TrainParts(_mind_front, _mind_loss_sum, _batch_rows,
+                       _mind_row_bytes),
+    "xdeepfm": TrainParts(_xdeepfm_front, _xdeepfm_loss_sum, _batch_rows,
+                          _xdeepfm_row_bytes),
+    "autoint": TrainParts(_ctr_front, _autoint_loss_sum, _batch_rows,
+                          _autoint_row_bytes),
+}
+
+
+def train_chunk_rows(kind: str, cfg) -> int:
+    """Rows of one training chunk of ``kind``: at most
+    :data:`TRAIN_CHUNK_BYTES` of saved activations (TRAIN_ROW_FACTOR
+    times a scoring row's intermediates), at least one row."""
+    row = TRAIN_ROW_FACTOR * TRAIN_PARTS[kind].row_bytes(cfg)
+    return max(1, TRAIN_CHUNK_BYTES // max(1, row))
+
+
+def loss_and_grad(kind: str, params: nn.Module, batch, cfg,
+                  rows: int | None = None) -> torch.Tensor:
+    """The batch-mean training loss of ``kind`` (a detached 0-d tensor),
+    its gradient added into every parameter's ``.grad``.
+
+    The sparse front end runs once, its outputs are cut into row chunks
+    of ``rows`` (default :func:`train_chunk_rows`), each chunk a leaf of
+    its own; each chunk's dense part runs and backpropagates its share of
+    the mean (its loss sum over the denominator), so only one chunk's
+    activations live at a time; then the chunks' leaf gradients, put back
+    together, backpropagate through the front end once (one B3 backward
+    launch for every multi-hot field).  The gradient is JAX's
+    ``value_and_grad`` of the batch mean, summed in another order.  No
+    value is read back to the host.
+    """
+    parts = TRAIN_PARTS[kind]
+    n = next(iter(batch.values())).shape[0]
+    rows = train_chunk_rows(kind, cfg) if rows is None else rows
+    with torch.enable_grad():
+        front = parts.front(params, batch, cfg)
+        denom = parts.denominator(batch)
+        leaf_grads = {k: [] for k in front}
+        loss = None
+        for s in range(0, n, rows):
+            leaves = {k: v[s:s + rows].detach().requires_grad_()
+                      for k, v in front.items()}
+            sub = {k: v[s:s + rows] for k, v in batch.items()}
+            part = parts.loss_sum(params, leaves, sub, cfg) / denom
+            part.backward()
+            loss = part.detach() if loss is None else loss + part.detach()
+            for k, v in leaves.items():
+                leaf_grads[k].append(v.grad)
+            del leaves, part
+        torch.autograd.backward(
+            list(front.values()),
+            [torch.cat(leaf_grads.pop(k)) for k in list(front)])
+    return loss

@@ -110,7 +110,9 @@ def test_python_dash_m_repro_torch_runs_without_jax():
     imports, evaluates and byte-matches the golden, loading neither JAX
     nor the JAX package; nor do the recsys slice's modules (registry,
     steps, models, the EmbeddingBag wrapper), the eval arch, the service
-    and its client when imported after it.  ``python -m
+    and its client, the training slice (the optimizer, GatedGCN, the
+    graph data, the weight and state converter) and the recsys and GNN
+    ``train`` steps when imported and built after it.  ``python -m
     repro_torch.baselines.trec_eval_cli`` prints what the JAX package's
     baseline prints, ``python -m repro_torch.serve --device cpu``
     answers over stdio, and ``python -m repro_torch.serve.cluster --help``
@@ -133,8 +135,17 @@ def test_python_dash_m_repro_torch_runs_without_jax():
         "import repro_torch.serve, repro_torch.client, "
         "repro_torch.baselines.workflow, repro_torch.serve.cluster, "
         "repro_torch.serve.cluster.testing\n"
-        "assert list_archs() == ['autoint', 'mind', 'pytrec-eval', "
-        "'sasrec', 'xdeepfm']\n"
+        "import repro_torch.train.optimizer, repro_torch.models.gnn, "
+        "repro_torch.data.graph_data, repro_torch.configs.gatedgcn, "
+        "repro_torch.models.convert\n"
+        "a = get_arch('xdeepfm')\n"
+        "a.make_step(a.make_config(True), a.shapes['train_batch'], "
+        "device='cpu')\n"
+        "g = get_arch('gatedgcn')\n"
+        "g.make_step(g.make_config(True), g.shapes['molecule'], "
+        "device='cpu')\n"
+        "assert list_archs() == ['autoint', 'gatedgcn', 'mind', "
+        "'pytrec-eval', 'sasrec', 'xdeepfm']\n"
         "bad = [m for m in sys.modules if m == 'repro' "
         "or m.startswith(('repro.', 'jax.', 'jaxlib'))]\n"
         "assert not bad, bad\n")

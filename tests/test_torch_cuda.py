@@ -13,7 +13,11 @@ bag holding every lookup and no lookups, and its fixed-length entry and
 the all-fields lookup bit for bit against the CPU, with an out-of-range id
 trapping on the device; the hot-path wrappers (top-k, EmbeddingBag, the
 fused measures) under ``torch.cuda.set_sync_debug_mode("error")``; smoke-size recsys steps
-on the card against the CPU; and the experiment slice: the sweep on both
+on the card against the CPU; training: B3's backward kernel (empty mask,
+one bag, repeated rows, ``fields > 1``) bit for bit against the CPU and on
+two launches, the autograd Function, and smoke recsys and GatedGCN train
+steps (no host sync) with every gradient against the CPU's; and the
+experiment slice: the sweep on both
 backends (``single`` bit-identical to separate evaluations, ``sharded``
 through the fused kernel), significance on the card against the CPU,
 permutation p-values unchanged by TF32 and drawn from a generator on the
@@ -38,14 +42,17 @@ import torch
 from repro_torch.core import RelevanceEvaluator
 from repro_torch.core import trec
 from repro_torch.configs.common import smoke_shape
+from repro_torch.configs.gatedgcn import shape_config
+from repro_torch.data import graph_data as GD
 from repro_torch.data import recsys_data as RD
 from repro_torch.distributed import ShardedEvaluator
 from repro_torch.kernels import embedding_bag as EB
 from repro_torch.kernels import fused_measures as FM
 from repro_torch.kernels import topk as TK
-from repro_torch.launch.api import get_arch, to_device
+from repro_torch.launch.api import ShapeSpec, get_arch, to_device
 from repro_torch.launch.steps import MODELS
 from repro_torch.models import embedding as E
+from repro_torch.models.gnn import GatedGCN
 
 pytestmark = pytest.mark.cuda
 
@@ -723,3 +730,165 @@ def test_compare_cli_on_cuda_byte_matches_golden(cuda):
                                                   "conformance.qrel"),
                              *runs], out=out) == 0
         assert out.getvalue() == golden
+
+
+# -- training: B3's backward kernel and train steps on the card ----------------
+
+
+@pytest.mark.parametrize("n,m,e,fields,case", [
+    (5000, 8, 10, 3, "mask"),      # xDeepFM's layout
+    (1, 8, 10, 1, "mask"),         # one bag
+    (300, 4, 10, 2, "empty"),      # every lookup masked out
+    (400, 8, 33, 1, "repeated"),   # a few rows taken many times
+    (257, 3, 10, 4, "none"),       # no mask, fields > 1
+    (0, 8, 10, 3, "mask"), (10, 0, 10, 1, "none"),
+])
+def test_embedding_bag_fixed_backward_matches_plain(cuda, n, m, e, fields,
+                                                    case):
+    """B3-bwd: bit for bit the plain version on the CPU (which adds in
+    lookup order, as the kernel does), the same bits on two launches, and
+    close to the plain version on the card, whose atomics add in any
+    order: a row here sums up to 1,100 terms of ~1, so within 1e-5
+    relative and 1e-5 of the largest sum."""
+    rng = np.random.default_rng(n + m + e + fields)
+    field_rows = 97
+    v = fields * field_rows
+    ids = rng.integers(0, 3 if case == "repeated" else field_rows,
+                       (n, m)).astype(np.int32)
+    mask = None if case == "none" else rng.random((n, m)) < 0.6
+    if case == "empty":
+        mask[:] = False
+    grad = rng.standard_normal((n, e)).astype(np.float32)
+    cpu = [None if x is None else torch.from_numpy(x)
+           for x in (grad, ids, mask)]
+    dev = [None if x is None else x.to(cuda) for x in cpu]
+    before = EB.BACKWARD_LAUNCHES
+    got = EB.embedding_bag_fixed_backward(*dev, v, fields, field_rows)
+    again = EB.embedding_bag_fixed_backward(*dev, v, fields, field_rows)
+    assert EB.BACKWARD_LAUNCHES == before + (2 if n * m else 0)
+    plain = EB.embedding_bag_fixed_backward_plain(*dev, v, fields,
+                                                  field_rows)
+    want = EB.embedding_bag_fixed_backward_plain(*cpu, v, fields, field_rows)
+    torch.cuda.synchronize()
+    assert got.shape == (v, e)
+    assert torch.equal(got, again)
+    assert torch.equal(got.cpu(), want)
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    assert torch.allclose(got, plain, atol=1e-5 * scale, rtol=1e-5)
+    if case == "empty":
+        assert not bool(got.any())
+
+
+def test_embedding_bag_fixed_grad_on_cuda_matches_cpu_autograd(cuda):
+    """The autograd Function: forward B3, backward B3-bwd; the table's
+    gradient equals the CPU's (plain forward and backward), bit for bit;
+    the call under inference mode records nothing."""
+    rng = np.random.default_rng(9)
+    table = torch.from_numpy(rng.standard_normal((300, 10)).astype(
+        np.float32))
+    ids = torch.from_numpy(rng.integers(0, 100, (96, 8)).astype(np.int32))
+    mask = torch.from_numpy(rng.random((96, 8)) < 0.6)
+    weight = torch.from_numpy(rng.standard_normal((96, 10)).astype(
+        np.float32))
+    grads = []
+    for dev in ("cpu", cuda):
+        t = table.to(dev).detach().requires_grad_()
+        out = EB.embedding_bag_fixed_grad(t, ids.to(dev), mask.to(dev), 3,
+                                          100)
+        (out * weight.to(dev)).sum().backward()
+        grads.append(t.grad.cpu())
+    assert torch.equal(grads[0], grads[1])
+    with torch.inference_mode():
+        out = EB.embedding_bag_fixed_grad(table.to(cuda), ids.to(cuda))
+    assert out.grad_fn is None
+
+
+def _train_batch(name, cfg, b, step):
+    if name == "sasrec":
+        return RD.seq_batch(RD.SeqDataConfig(cfg.n_items, cfg.seq_len, b),
+                            step)
+    if name == "mind":
+        return RD.mind_batch(RD.SeqDataConfig(cfg.table.vocab_per_field,
+                                              cfg.hist_len, b), step)
+    return RD.ctr_batch(RD.CTRDataConfig(
+        cfg.table.n_fields, cfg.table.vocab_per_field, b, cfg.n_multi_hot,
+        cfg.multi_hot_len), step)
+
+
+@pytest.mark.parametrize("name", ["xdeepfm", "sasrec", "autoint", "mind"])
+def test_recsys_train_step_on_cuda_matches_cpu(cuda, name):
+    """A smoke train step on the card (no host sync in it) against the
+    same step on the CPU from the same weights: loss, grad_norm and every
+    gradient leaf, the table's included, within rtol 2e-4 plus atol
+    2e-4 · max|g|; xDeepFM launches B3 and B3-bwd once a step."""
+    arch = get_arch(name)
+    cfg = arch.make_config(True)
+    shape = smoke_shape(arch.shapes["train_batch"], batch=64)
+    cpu_model = MODELS[name](cfg, device="cpu")
+    gpu_model = MODELS[name](cfg, device=cuda)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    gpu = arch.make_step(cfg, shape, device=cuda)
+    cpu = arch.make_step(cfg, shape, device="cpu")
+    gpu_state, cpu_state = gpu.init_opt(gpu_model), cpu.init_opt(cpu_model)
+    for step in range(2):
+        batch = _train_batch(name, cfg, 64, step)
+        dev_batch = to_device(batch, cuda)
+        eb, bwd = EB.LAUNCHES, EB.BACKWARD_LAUNCHES
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            gpu_model, gpu_state, got = gpu.step_fn(gpu_model, gpu_state,
+                                                    dev_batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        if name == "xdeepfm":
+            assert (EB.LAUNCHES, EB.BACKWARD_LAUNCHES) == (eb + 1, bwd + 1)
+        cpu_model, cpu_state, want = cpu.step_fn(cpu_model, cpu_state,
+                                                 to_device(batch, "cpu"))
+        for k in want:
+            assert float(got[k]) == pytest.approx(float(want[k]), rel=TOL,
+                                                  abs=TOL), k
+        cpu_grads = dict(cpu_model.named_parameters())
+        for n, p in gpu_model.named_parameters():
+            g, w = p.grad.cpu(), cpu_grads[n].grad
+            allow = TOL * w.abs() + TOL * float(w.abs().max())
+            assert bool(((g - w).abs() <= allow).all()), (n, step)
+
+
+@pytest.mark.parametrize("task", ["node", "graph"])
+def test_gnn_train_step_on_cuda_matches_cpu(cuda, task):
+    arch = get_arch("gatedgcn")
+    cfg = arch.make_config(True)
+    if task == "node":
+        meta = (("n_nodes", 300), ("n_edges", 1200), ("d_feat", 8),
+                ("n_classes", 5))
+        batch = GD.random_graph(GD.GraphConfig(300, 1200, 8, 5, 4, seed=1))
+    else:
+        meta = (("n_nodes", 60), ("n_edges", 100), ("d_feat", 8),
+                ("n_classes", 3), ("graph_task", True), ("n_graphs", 10))
+        batch = GD.graph_batch(10, 6, 10, 8, 3, 4, seed=1)
+    shape = ShapeSpec("t", "train", meta)
+    cpu_model = GatedGCN(shape_config(cfg, shape), device="cpu")
+    gpu_model = GatedGCN(shape_config(cfg, shape), device=cuda)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    gpu = arch.make_step(cfg, shape, device=cuda)
+    cpu = arch.make_step(cfg, shape, device="cpu")
+    dev_batch = to_device(batch, cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, _, got = gpu.step_fn(gpu_model, gpu.init_opt(gpu_model),
+                                dev_batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _, _, want = cpu.step_fn(cpu_model, cpu.init_opt(cpu_model),
+                             to_device(batch, "cpu"))
+    for k in want:
+        assert float(got[k]) == pytest.approx(float(want[k]), rel=TOL,
+                                              abs=TOL), k
+    cpu_grads = dict(cpu_model.named_parameters())
+    for n, p in gpu_model.named_parameters():
+        g, w = p.grad.cpu(), cpu_grads[n].grad
+        assert bool(((g - w).abs() <= TOL * w.abs()
+                     + TOL * float(w.abs().max())).all()), n

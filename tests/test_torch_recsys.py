@@ -190,7 +190,7 @@ def test_configs_and_shapes_match_jax(name, smoke):
 
 
 def test_registry_lists_the_ported_archs():
-    assert list_archs() == sorted(ARCHS + ("pytrec-eval",))
+    assert list_archs() == sorted(ARCHS + ("gatedgcn", "pytrec-eval"))
     with pytest.raises(KeyError):
         get_arch("olmo-1b")
 
@@ -240,10 +240,19 @@ def test_load_jax_params_raises_on_missing_extra_and_misshaped_leaves():
 
 
 def test_train_kind_is_not_ported_yet():
-    arch = get_arch("xdeepfm")
-    cfg = arch.make_config(True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        arch.make_step(cfg, arch.shapes["train_batch"], device="cpu")
+    """The name predates the train kind's port: the step now builds for
+    every recsys arch, with the optimizer state as its second argument
+    (its parity with JAX is tests/test_torch_train.py's)."""
+    for name in ARCHS:
+        arch = get_arch(name)
+        cfg = arch.make_config(True)
+        bundle = arch.make_step(cfg, arch.shapes["train_batch"],
+                                device="cpu")
+        params, opt, inputs = bundle.arg_specs
+        assert params == STEPS.param_specs(name, cfg)
+        assert opt.m.keys() == params.keys()
+        assert next(iter(inputs.values())).shape[0] == 65_536
+        assert callable(bundle.init_opt)
 
 
 def test_entry_points_default_to_cuda():
