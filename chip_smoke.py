@@ -124,6 +124,28 @@ points a user calls:
   (a random graph at the padded subgraph's size): 3 steps each with the
   in-loop rank metrics, one more profiled, ``full_graph_sm`` against the
   CPU as above.  ``ogb_products`` is reckoned, not run.
+* L. The LM family on the card, through ``get_arch(name).make_step``.
+  L1: each of the five smoke configs (float32, seeded weights) on the
+  card against the CPU from the same weights: ``logits_train``; one
+  ``train`` step under ``set_sync_debug_mode("error")`` (loss, grad_norm,
+  lr and the rank metrics within 2e-4, each gradient leaf within 2e-3 of
+  its norm); ``prefill`` and 4 ``decode`` steps (logits and cache within
+  2e-4).  For qwen3 and arctic every MoE route is logged on both devices
+  and the tokens whose expert or capacity slot differ are counted; only
+  rows whose routes agree are held.  L2: olmo-1b at full width and depth
+  (bfloat16, 1.18B parameters): ``train_4k`` at OLMO_TRAIN_BATCH
+  sequences of 4,096 (step ms, tokens/s, peak bytes, one profiled step),
+  ``prefill`` at OLMO_PREFILL_SEQ (the 32k shape's score bytes printed
+  as a shape spec), ``decode_32k`` at OLMO_DECODE_BATCH from a seeded
+  cache at pos 32,767 (ms a token, tokens/s, the byte bound), and
+  ``prefill`` + ``decode_step`` against ``logits_train`` on the same
+  tokens within LM_BF16_TOL of the largest logit (float32's gap
+  printed beside it).  L3: qwen3-moe-235b at full width, QWEN3_LAYERS
+  of its 94 layers: ``prefill`` at 4,096 with the share of routed
+  choices capacity dropped, and 4 ``decode`` steps.  The full phi3,
+  nemotron, qwen3 and arctic configs are printed as shape specs
+  (parameter bytes, training state bytes, the depth one card holds).
+  No LM path may launch B1, B2 or B3.
 * D. Each kernel against its plain PyTorch version on the main paths'
   inputs, with median times, the plain version's time, one PyTorch call's
   time where one computes the same function (``torch.topk``,
@@ -2771,6 +2793,520 @@ def embedding_bag_backward_row(args, launches, err):
     return row
 
 
+# -- phase L: the LM family on the card ---------------------------------------
+
+LM_ARCHS = ("olmo-1b", "phi3-medium-14b", "nemotron-4-15b",
+            "qwen3-moe-235b-a22b", "arctic-480b")
+LM_CHECK_BATCH, LM_CHECK_SEQ = 2, 16  # L1: smoke configs, card vs CPU
+LM_DECODE_STEPS = 4
+LM_ROUTE_DRAWS = 8  # L1: batches drawn until card and CPU routes agree
+#: L2, olmo-1b at full width and depth.  JAX's train_4k batch (256) is a
+#: pod's.  Params, grads and AdamW's float32 m and v take ~19 GB; the
+#: naive attention keeps a [B, 16, S, S] float32 softmax per layer in
+#: backward and the loss a [B, S, 50,304] float32 one.  8 sequences of
+#: 4,096 ran out of memory after the earlier phases (49 GiB allocated,
+#: 24 GiB held by the allocator in pieces too small); 4 leave room
+OLMO_TRAIN_BATCH = 4
+OLMO_PREFILL_SEQ = 16_384  # batch 1: [16, S, S] float32 scores, 17.2 GB
+OLMO_DECODE_BATCH = 8  # a seeded 32,768-token cache, 4.29 GB a sequence
+OLMO_DECODE_STEPS = 10  # timed decode steps at pos 32,767
+CONSIST_PROMPT, CONSIST_STEPS = 256, 8  # prefill + decode vs logits_train
+#: bfloat16 gap between prefill + decode_step and logits_train on the same
+#: tokens (another order of every sum): max |diff| over max |logit|.
+#: Measured on an H100 at these shapes: 1.44e-2 (float32 from the same
+#: weights: 3.0e-6); the limit is about twice that, 8 bfloat16 roundings
+#: (2^-8 each) of the largest logit
+LM_BF16_TOL = 3e-2
+#: the same gap in float32 from the same weights: a decode fault (a RoPE
+#: position, a cache slot, the mask) that bfloat16's limit could hide
+#: shows here.  Measured on an H100: 3.0e-6; the limit is 30 times that
+LM_F32_TOL = 1e-4
+#: L3, qwen3-moe-235b at full width with its depth cut
+QWEN3_LAYERS = 8
+QWEN3_PREFILL_SEQ = 4096
+QWEN3_DECODE_STEPS = 4
+
+
+class _RouteLog:
+    """Every ``models.moe.route`` call's (gate values, token indices),
+    kept on their device, while the ``with`` block runs."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.calls, self._moe, self._route = [], moe, moe.route
+
+        def route(x2d, router, cfg):
+            out = self._route(x2d, router, cfg)
+            self.calls.append(tuple(t.detach() for t in out))
+            return out
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route = self._route
+
+
+def _slot_table(gate, idx, n_tokens):
+    """``[T, E]``: the capacity slot (1-based) each token holds in each
+    expert, 0 where it holds none (a zero gate fills a slot, holds none)."""
+    import torch
+
+    gate, idx = gate.cpu(), idx.cpu()
+    e, c = idx.shape
+    table = torch.zeros((n_tokens, e), dtype=torch.int64)
+    slots = torch.arange(1, c + 1).expand(e, c)
+    experts = torch.arange(e)[:, None].expand(e, c)
+    held = gate > 0
+    table[idx[held], experts[held]] = slots[held]
+    return table
+
+
+def _route_flips(card, cpu, n_tokens):
+    """Tokens whose expert choice or capacity slot differs between two
+    runs' route logs, in any layer (a bool ``[T]``)."""
+    import torch
+
+    check(len(card) == len(cpu), "route logs differ in length")
+    flipped = torch.zeros(n_tokens, dtype=torch.bool)
+    for (g1, i1), (g2, i2) in zip(card, cpu):
+        flipped |= (_slot_table(g1, i1, n_tokens)
+                    != _slot_table(g2, i2, n_tokens)).any(dim=1)
+    return flipped
+
+
+def _close_rows(got, want, rows, what, tol=TOL):
+    """``got`` within atol = rtol = tol of ``want`` on the batch rows
+    ``rows`` keeps; returns the largest difference there."""
+    import torch
+
+    got, want = got.float().cpu()[rows], want.float().cpu()[rows]
+    if got.numel() == 0:
+        return 0.0
+    err = float((got - want).abs().max())
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite values")
+    check(bool(((got - want).abs() <= tol + tol * want.abs()).all()),
+          f"{what}: {err} from the CPU's (limit {tol})")
+    return err
+
+
+def _lm_against_cpu(name, seed, device):
+    """L1: one smoke arch on the card against the CPU from the same
+    weights: a train step (under sync debug mode "error"), prefill, and
+    LM_DECODE_STEPS decode steps; MoE routes compared token by token."""
+    import torch
+
+    from repro_torch.configs.common import smoke_shape
+    from repro_torch.data import lm_data as LD
+    from repro_torch.launch.api import get_arch
+    from repro_torch.models import transformer as TF
+
+    arch = get_arch(name)
+    cfg = arch.make_config(True)
+    b, s, n = LM_CHECK_BATCH, LM_CHECK_SEQ, LM_DECODE_STEPS
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model = TF.Transformer(cfg, device=device, generator=gen)
+    cpu_model = _cpu_clone(model)
+    res = {"batch": b, "seq": s, "moe": cfg.moe is not None,
+           "train_tokens_rerouted": [], "logits_max_abs_err": 0.0}
+    # the forward on both devices first: routes and per-row agreement.
+    # The train step is held against the CPU's on a batch whose every
+    # route agrees: the batch is drawn again (at most LM_ROUTE_DRAWS
+    # times) while a route differs
+    for draw in range(LM_ROUTE_DRAWS):
+        batch = LD.MarkovLM(LD.LMDataConfig(cfg.vocab_size, s, b,
+                                            seed=seed + draw)).batch(0)
+        tokens = torch.from_numpy(batch["tokens"])
+        with torch.no_grad(), _RouteLog() as card_log:
+            card_logits = TF.logits_train(model, tokens.to(device), cfg)
+        with torch.no_grad(), _RouteLog() as cpu_log:
+            cpu_logits = TF.logits_train(cpu_model, tokens, cfg)
+        flips = _route_flips(card_log.calls, cpu_log.calls, b * s)
+        rows = ~flips.reshape(b, s).any(dim=1)
+        res["train_tokens_rerouted"].append(int(flips.sum()))
+        res["logits_max_abs_err"] = max(res["logits_max_abs_err"], _close_rows(
+            card_logits, cpu_logits, rows, f"{name} logits_train"))
+        if not bool(flips.any()):
+            break
+    check(not bool(flips.any()), f"{name}: card and CPU routes differ on "
+          f"each of {LM_ROUTE_DRAWS} batches")
+    res["train_batch_draws"] = draw + 1
+    del card_logits, cpu_logits, cpu_model
+    shape = smoke_shape(arch.shapes["train_4k"], seq_len=s, global_batch=b)
+    bundle = arch.make_step(cfg, shape, device=device)
+    state = bundle.init_opt(model)
+    model, state, res["train_against_cpu"] = _step_against_cpu(
+        bundle, arch.make_step(cfg, shape, device="cpu"), model, state,
+        batch, device, name)
+    del state
+
+    # serving: prefill s - n tokens into a cache of s, decode n more
+    cpu_model = _cpu_clone(model)
+    pre = smoke_shape(arch.shapes["prefill_32k"], seq_len=s - n,
+                      global_batch=b)
+    dec = smoke_shape(arch.shapes["decode_32k"], seq_len=s, global_batch=b)
+    labels = torch.from_numpy(batch["labels"])
+    runs = []
+    for dev, m in ((device, model), ("cpu", cpu_model)):
+        toks, gold = tokens.to(dev), labels.to(dev)
+        with _RouteLog() as log:
+            last, full = arch.make_step(cfg, pre, device=dev).step_fn(
+                m, toks[:, :s - n], max_seq=s)
+            step = arch.make_step(cfg, dec, device=dev).step_fn
+            logits, metrics = [last], []
+            for pos in range(s - n, s):
+                out, full, mets = step(m, full, toks[:, pos], pos,
+                                       gold[:, pos])
+                logits.append(out)
+                metrics.append(mets)
+        runs.append((log.calls, logits, metrics, full))
+    card, cpu = runs
+    # route calls: one a layer in the prefill, then one a layer a step
+    n_pre = per_step = cfg.n_layers if cfg.moe else 0
+    flips = _route_flips(card[0][:n_pre], cpu[0][:n_pre], b * (s - n))
+    rows = ~flips.reshape(b, s - n).any(dim=1)
+    for i in range(n):
+        calls = slice(n_pre + i * per_step, n_pre + (i + 1) * per_step)
+        rows &= ~_route_flips(card[0][calls], cpu[0][calls], b)
+    res["serve_tokens_rerouted"] = int(flips.sum())
+    res["serve_rows_held"] = int(rows.sum())
+    errs = [_close_rows(g, w, rows, f"{name} logits {i}")
+            for i, (g, w) in enumerate(zip(card[1], cpu[1]))]
+    for k in ("k", "v"):
+        errs.append(_close_rows(card[3][k].transpose(0, 1),
+                                cpu[3][k].transpose(0, 1), rows,
+                                f"{name} cache {k}"))
+    if bool(rows.all()):  # means over the batch: held when no row differs
+        for i, (g, w) in enumerate(zip(card[2], cpu[2])):
+            errs.append(_metrics_close(g, w, f"{name} decode {i}"))
+    res["serve_max_abs_err"] = max(errs)
+    return res
+
+
+def _spec_bytes(tree):
+    """Bytes of a tree of ``launch.api.TensorSpec``s."""
+    import torch
+
+    from repro_torch.launch.api import TensorSpec
+
+    if isinstance(tree, TensorSpec):
+        return int(np.prod(tree.shape, dtype=np.int64)) * torch.empty(
+            (), dtype=tree.dtype).element_size()
+    if isinstance(tree, dict):
+        return sum(_spec_bytes(v) for v in tree.values())
+    return sum(_spec_bytes(v) for v in tree)
+
+
+def _lm_bytes(name, cfg, device):
+    """From the ``train_4k`` bundle's argument specs (nothing
+    allocated): the parameters and their bytes, one layer's bytes and
+    the rest's, and the same for training state (parameters, gradients
+    and the optimizer's m and v); the deepest stack of layers whose
+    weights (or training state, activations aside) one card holds."""
+    import torch
+
+    from repro_torch.launch.api import get_arch
+
+    arch = get_arch(name)
+    params, opt, _ = arch.make_step(cfg, arch.shapes["train_4k"],
+                                    device=device).arg_specs
+    total = torch.cuda.get_device_properties(0).total_memory
+    out = {"params": sum(int(np.prod(p.shape)) for p in params.values())}
+    for what, per_name in (
+            ("weights", lambda n: _spec_bytes(params[n])),
+            ("train_state", lambda n: 2 * _spec_bytes(params[n])
+             + _spec_bytes(opt.m[n]) + _spec_bytes(opt.v[n]))):
+        layer = sum(per_name(n) for n in params
+                    if n.startswith("layers.")) // cfg.n_layers
+        rest = sum(per_name(n) for n in params
+                   if not n.startswith("layers."))
+        out[f"{what}_bytes"] = layer * cfg.n_layers + rest
+        out[f"{what}_bytes_per_layer"] = layer
+        out[f"{what}_bytes_outside_layers"] = rest
+        out[f"largest_depth_{what}_fit"] = max(0, (total - rest) // layer)
+    return out
+
+
+def _olmo_train(model, cfg, arch, seed, device):
+    import torch
+
+    from repro_torch.configs.common import smoke_shape
+    from repro_torch.data import lm_data as LD
+    from repro_torch.launch.api import to_device
+
+    b, s = OLMO_TRAIN_BATCH, arch.shapes["train_4k"].get("seq_len")
+    shape = smoke_shape(arch.shapes["train_4k"], global_batch=b)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    bundle = arch.make_step(cfg, shape, device=device)
+    state = bundle.init_opt(model)
+    data = LD.MarkovLM(LD.LMDataConfig(cfg.vocab_size, s, b, seed=seed))
+    zero_launches()
+    model, state, steps = _train_steps(bundle, model, state, data.batch,
+                                       device)
+    launches = read_launches()
+    ms = float(np.median([x["ms"] for x in steps[1:]]))
+    jb = arch.shapes["train_4k"].get("global_batch")
+    res = {"batch": b, "seq": s, "cut": f"global_batch {jb} -> {b}",
+           "step_ms": ms, "tokens_per_s": b * s / ms * 1e3,
+           "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "steps": steps, "launches": launches}
+    check(not any(launches.values()),
+          f"olmo-1b training launched kernels {launches}")
+    res["profile"], model, state = profile_step(
+        bundle, model, state, to_device(data.batch(TRAIN_STEPS), device))
+    del state
+    return model, res
+
+
+def _olmo_serve(model, cfg, arch, seed, device):
+    """prefill at OLMO_PREFILL_SEQ, decode_32k at OLMO_DECODE_BATCH from
+    a seeded cache at its last position, and prefill + decode_step against
+    logits_train on the same tokens."""
+    import torch
+
+    from repro_torch.configs.common import smoke_shape
+    from repro_torch.models import transformer as TF
+
+    rng = np.random.default_rng(seed)
+    res = {}
+    s = OLMO_PREFILL_SEQ
+    full = arch.shapes["prefill_32k"]
+    step = arch.make_step(cfg, smoke_shape(arch.shapes["prefill_32k"],
+                                           seq_len=s, global_batch=1),
+                          device=device)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, s))
+                              .astype(np.int32)).to(device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    step.step_fn(model, tokens)  # warm-up
+    (last, cache), sec = _synced(lambda: step.step_fn(model, tokens))
+    ms = sec * 1e3
+    check(bool(torch.isfinite(last).all()), "olmo prefill: non-finite logits")
+    check(tuple(cache["k"].shape) == (cfg.n_layers, 1, cfg.n_kv_heads, s,
+                                      cfg.head_dim), "olmo prefill cache")
+    res["prefill"] = {
+        "seq": s, "batch": 1, "ms": ms, "tokens_per_s": s / ms * 1e3,
+        "cut": f"seq_len {full.get('seq_len')} -> {s}, global_batch "
+               f"{full.get('global_batch')} -> 1",
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+        "scores_bytes_per_layer": cfg.n_heads * s * s * 4,
+        "prefill_32k_shape_spec": {
+            "seq": full.get("seq_len"), "batch": full.get("global_batch"),
+            "scores_bytes_per_layer_per_sequence":
+                cfg.n_heads * full.get("seq_len") ** 2 * 4}}
+    del last, cache
+
+    b, s = OLMO_DECODE_BATCH, arch.shapes["decode_32k"].get("seq_len")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    cache = TF.init_cache(cfg, b, s, device=device)
+    for k in cache:
+        cache[k].normal_(0.0, 1.0, generator=gen)
+    step = arch.make_step(cfg, smoke_shape(arch.shapes["decode_32k"],
+                                           global_batch=b),
+                          device=device).step_fn
+    token = torch.from_numpy(rng.integers(0, cfg.vocab_size, b)
+                             .astype(np.int32)).to(device)
+    gold = torch.from_numpy(rng.integers(0, cfg.vocab_size, b)
+                            .astype(np.int32)).to(device)
+    step(model, cache, token, s - 1, gold)  # warm-up
+    times = []
+    for _ in range(OLMO_DECODE_STEPS):
+        (logits, cache, metrics), sec = _synced(
+            lambda: step(model, cache, token, s - 1, gold))
+        times.append(sec * 1e3)
+    vals = {k: float(v) for k, v in metrics.items()}
+    check(bool(torch.isfinite(logits).all())
+          and all(np.isfinite(v) for v in vals.values()),
+          "olmo decode: non-finite output")
+    prof = profile_call(lambda: step(model, cache, token, s - 1, gold))
+    cache_bytes = sum(v.numel() * v.element_size() for v in cache.values())
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    ms = float(np.median(times))
+    res["decode_32k"] = {
+        "batch": b, "seq": s, "pos": s - 1,
+        "cut": f"global_batch {arch.shapes['decode_32k'].get('global_batch')}"
+               f" -> {b}",
+        "ms_per_token": ms, "tokens_per_s": b / ms * 1e3,
+        "step_ms": times, "cache_bytes": cache_bytes,
+        "bound_ms": (cache_bytes + weight_bytes) / HBM_BYTES_PER_S * 1e3,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+        "metrics": vals, "profile": prof,
+        "jax_batch_cache_bytes": cache_bytes // b
+        * arch.shapes["decode_32k"].get("global_batch")}
+    del cache, logits
+    res["launches"] = read_launches()
+    check(not any(res["launches"].values()),
+          f"olmo-1b serving launched kernels {res['launches']}")
+    res["consistency"] = _prefill_decode_consistency(model, cfg, rng, device)
+    return res
+
+
+def _prefill_decode_consistency(model, cfg, rng, device):
+    """prefill(P tokens) then n decode_steps against logits_train at the
+    same positions, in the model's bfloat16 and (for scale) in float32
+    from the same weights: max |diff| over max |logit|."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import transformer as TF
+
+    p, n = CONSIST_PROMPT, CONSIST_STEPS
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, p + n))
+                              .astype(np.int32)).to(device)
+
+    def gap(m, c):
+        with torch.inference_mode():
+            want = TF.logits_train(m, tokens, c).float()
+            last, cache = TF.prefill(m, tokens[:, :p], c, max_seq=p + n)
+            got = [last]
+            for pos in range(p, p + n - 1):
+                logits, cache = TF.decode_step(m, cache, tokens[:, pos], pos,
+                                               c)
+                got.append(logits)
+        got = torch.stack(got, dim=1).float()
+        want = want[:, p - 1:p + n - 1]
+        check(bool(torch.isfinite(got).all()), "consistency: non-finite")
+        return float((got - want).abs().max() / want.abs().max())
+
+    out = {"prompt": p, "decode_steps": n - 1, "bf16_rel_gap":
+           gap(model, cfg), "bf16_limit": LM_BF16_TOL,
+           "f32_limit": LM_F32_TOL}
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    m32 = TF.Transformer(cfg32, device="meta").to_empty(device=device)
+    m32.load_state_dict(model.state_dict())
+    out["f32_rel_gap"] = gap(m32, cfg32)
+    del m32
+    check(out["f32_rel_gap"] <= LM_F32_TOL,
+          f"olmo prefill + decode vs logits_train in float32: "
+          f"{out['f32_rel_gap']} of the largest logit (limit {LM_F32_TOL})")
+    check(out["bf16_rel_gap"] <= LM_BF16_TOL,
+          f"olmo prefill + decode vs logits_train: {out['bf16_rel_gap']} "
+          f"of the largest logit (limit {LM_BF16_TOL})")
+    return out
+
+
+def _qwen3_cut(seed, device):
+    """L3: qwen3-moe-235b at full width, QWEN3_LAYERS of its 94 layers:
+    prefill at QWEN3_PREFILL_SEQ and QWEN3_DECODE_STEPS decode steps;
+    the share of routed (token, expert) choices that capacity dropped."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.common import smoke_shape
+    from repro_torch.launch.api import get_arch
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as TF
+
+    arch = get_arch("qwen3-moe-235b-a22b")
+    full = arch.make_config(False)
+    cfg = dataclasses.replace(full, n_layers=QWEN3_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model = TF.Transformer(cfg, device=device, generator=gen)
+    res = {"layers": QWEN3_LAYERS, "of_layers": full.n_layers,
+           "cut": f"n_layers {full.n_layers} -> {QWEN3_LAYERS}",
+           **_lm_bytes(arch.name, cfg, device)}
+    s, n = QWEN3_PREFILL_SEQ, QWEN3_DECODE_STEPS
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (1, s + n + 1))
+                              .astype(np.int32)).to(device)
+    prefill = arch.make_step(cfg, smoke_shape(arch.shapes["prefill_32k"],
+                                              seq_len=s, global_batch=1),
+                             device=device)
+    zero_launches()
+    prefill.step_fn(model, tokens[:, :s])  # warm-up
+    with _RouteLog() as log:
+        (last, cache), sec = _synced(
+            lambda: prefill.step_fn(model, tokens[:, :s], max_seq=s + n))
+    ms = sec * 1e3
+    kept = [int((g > 0).sum()) for g, _ in log.calls]
+    routed = s * cfg.moe.top_k
+    res["prefill"] = {"seq": s, "ms": ms, "tokens_per_s": s / ms * 1e3,
+                      "capacity": moe.capacity(s, cfg.moe),
+                      "dropped_share_per_layer":
+                          [1 - k / routed for k in kept]}
+    step = arch.make_step(cfg, smoke_shape(arch.shapes["decode_32k"],
+                                           seq_len=s + n, global_batch=1),
+                          device=device)
+    times = []
+    for pos in range(s, s + n):
+        (logits, cache, metrics), sec = _synced(
+            lambda: step.step_fn(model, cache, tokens[:, pos], pos,
+                                 tokens[:, pos + 1]))
+        times.append(sec * 1e3)
+        check(bool(torch.isfinite(logits).all()), "qwen3 decode non-finite")
+    check(bool(torch.isfinite(last).all()), "qwen3 prefill non-finite")
+    res["decode"] = {"batch": 1, "step_ms": times,
+                     "capacity": moe.capacity(1, cfg.moe),
+                     "metrics": {k: float(v) for k, v in metrics.items()}}
+    res["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    res["launches"] = read_launches()
+    check(not any(res["launches"].values()),
+          f"qwen3 launched kernels {res['launches']}")
+    del model, cache, last, logits
+    return res
+
+
+def phase_lm(device, seed):
+    """The LM family on the card: L1 every smoke arch against the CPU,
+    L2 olmo-1b at full width and depth (train, prefill, decode_32k, the
+    prefill + decode consistency), L3 qwen3-moe at full width with its
+    depth cut; the full configs that one card cannot hold as shape
+    specs."""
+    import torch
+
+    from repro_torch.launch.api import get_arch
+
+    result = {"phase": "L", "L1": {}}
+    for name in LM_ARCHS:
+        t0 = time.perf_counter()
+        result["L1"][name] = _lm_against_cpu(name, seed, device)
+        result["L1"][name]["seconds"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    arch = get_arch("olmo-1b")
+    cfg = arch.make_config(False)
+    from repro_torch.models import transformer as TF
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model = TF.Transformer(cfg, device=device, generator=gen)
+    l2 = {**_lm_bytes("olmo-1b", cfg, device), "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "dtype": cfg.dtype}
+    model, l2["train_4k"] = _olmo_train(model, cfg, arch, seed, device)
+    model.zero_grad(set_to_none=True)
+    l2.update(_olmo_serve(model, cfg, arch, seed, device))
+    l2["seconds"] = time.perf_counter() - t0
+    result["L2"] = l2
+    del model
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    result["L3"] = _qwen3_cut(seed, device)
+    result["L3"]["seconds"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    specs = {"device_total_bytes":
+             torch.cuda.get_device_properties(0).total_memory,
+             "note": "largest depth: activations aside"}
+    for name in LM_ARCHS[1:]:
+        full = get_arch(name).make_config(False)
+        specs[name] = {"layers": full.n_layers,
+                       **_lm_bytes(name, full, device)}
+    result["shape_specs"] = specs
+    return result, None
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2829,6 +3365,7 @@ def main(argv=None) -> int:
     timed(phase_service, "cuda", sweep["data"], args.seed)
     timed(phase_cluster, "cuda", sweep["data"], args.seed)
     out_t, train = timed(phase_train, "cuda", args.seed)
+    timed(phase_lm, "cuda", args.seed)
     launches = {"fused_measures": out_b["launches"]["fused_measures"],
                 "fused_measures_sweep": out_f["launches"]["fused_measures"],
                 "fused_measures_deep":

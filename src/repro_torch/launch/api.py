@@ -3,9 +3,10 @@
 The counterpart of ``repro.launch.api``.  Each ``configs/<id>.py`` exposes
 ``ARCH: ArchDef``.  An ArchDef knows how to build its full (paper-exact)
 and smoke (reduced) model configs, and how to build the step function of
-each of its shapes on one device: the four recsys archs, GatedGCN
+each of its shapes on one device.  Every arch of the JAX package is
+registered: the five LMs (family ``lm``), the four recsys archs, GatedGCN
 (family ``gnn``) and the paper's own evaluator (``pytrec-eval``, family
-``eval``).  ``list_archs`` covers only the archs the port has.
+``eval``).
 """
 
 from __future__ import annotations
@@ -60,7 +61,7 @@ class StepBundle:
 @dataclasses.dataclass
 class ArchDef:
     name: str
-    family: str  # recsys | gnn | eval (lm is not ported yet)
+    family: str  # lm | recsys | gnn | eval
     shapes: Dict[str, ShapeSpec]
     make_config: Callable[[bool], Any]  # (smoke: bool) -> model config
     # (cfg, shape, device=None) -> StepBundle; None → CUDA
@@ -92,8 +93,19 @@ def _load_all() -> None:
     # Import for side effect: each module registers its ARCH.  Always run
     # (a module imported directly registers only itself; a repeated
     # import is a dictionary lookup).
-    from repro_torch.configs import (autoint, gatedgcn, mind,  # noqa
-                                     pytrec_paper, sasrec, xdeepfm)
+    from repro_torch.configs import (  # noqa: F401
+        arctic_480b,
+        autoint,
+        gatedgcn,
+        mind,
+        nemotron_4_15b,
+        olmo_1b,
+        phi3_medium_14b,
+        pytrec_paper,
+        qwen3_moe_235b,
+        sasrec,
+        xdeepfm,
+    )
 
 
 _NP_TO_TORCH = {np.dtype(np.int32): torch.int32,

@@ -1,10 +1,11 @@
-"""Family step builders: recsys train / serve / retrieval and GNN train.
+"""Family step builders: LM train / prefill / decode, recsys train /
+serve / retrieval and GNN train.
 
-The counterpart of ``repro.launch.steps`` for the recsys and GNN
-families.  As in the JAX package, ranking metrics are computed inside the
-step from the scores already on the device (the port's ``core.measures``
-for slates, ``core.sorting.gold_rank`` and ``core.streaming.rank_metrics``
-in the GNN train step), so evaluation never crosses the host boundary:
+The counterpart of ``repro.launch.steps`` on one device.  As in the JAX
+package, ranking metrics are computed inside the step from the scores
+already on the device (the port's ``core.measures`` for slates,
+``core.sorting.gold_rank`` and ``core.streaming.rank_metrics`` in the GNN
+and LM steps), so evaluation never crosses the host boundary:
 only the metric scalars do.  Retrieval ranks with the port's top-k kernel
 (``kernels.ops.topk``: ``lax.top_k``'s order, ties to the lower index)
 where the JAX step calls ``lax.top_k``.
@@ -16,11 +17,15 @@ opt_state, batch) → (model, opt_state, metrics)`` with JAX's optimizer
 (``train.optimizer.adamw``) and JAX's metric keys; it updates the model's
 parameters in place, leaves their gradients in ``.grad`` until the next
 step, and reads nothing back to the host.  ``bundle.init_opt(model)``
-gives the optimizer's first state.
+gives the optimizer's first state.  The LM ``prefill`` and ``decode``
+steps run under ``torch.inference_mode``; ``decode`` writes the KV cache
+it is given in place (JAX's step donates it) and takes ``pos`` as a
+Python int.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict
 
 import torch
@@ -33,6 +38,7 @@ from repro_torch.launch.api import ShapeSpec, StepBundle, TensorSpec
 from repro_torch.models import gnn as gnn_lib
 from repro_torch.models import layers as L
 from repro_torch.models import recsys as rec_lib
+from repro_torch.models import transformer as tfm
 from repro_torch.train import optimizer as opt_lib
 
 I32 = torch.int32
@@ -211,6 +217,87 @@ def recsys_step_bundle(kind: str, cfg, shape: ShapeSpec,
         return StepBundle(serve, arg_specs, dev)
 
     raise ValueError(f"unsupported recsys shape kind {shape.kind}")
+
+
+# ===========================================================================
+# LM family
+# ===========================================================================
+
+
+def lm_step_bundle(cfg: tfm.TransformerConfig, shape: ShapeSpec,
+                   device=None, opt_memory_efficient: bool = False
+                   ) -> StepBundle:
+    """The LM step of ``shape.kind`` on ``device`` (default CUDA; raises
+    without it).
+
+    * ``train``: ``step_fn(model, opt_state, {"tokens", "labels"})`` →
+      (model, opt_state, metrics): cross-entropy, JAX's LM AdamW (lr
+      3e-4, 50 warm-up steps, cosine to 20,000; bfloat16 m and factored
+      v when ``opt_memory_efficient``), and the gold
+      token's rank (``sorting.gold_rank`` on the detached logits) with
+      ``streaming.rank_metrics``.
+    * ``prefill``: ``step_fn(model, tokens, max_seq=None)`` → (last
+      logits, KV cache padded with zeros to ``max_seq`` slots, default
+      the prompt's length; JAX's bundle always gives the prompt's).
+    * ``decode``: ``step_fn(model, cache, token, pos, gold)`` → (logits,
+      cache written in place, rank metrics of ``gold``).
+    """
+    dev = resolve_device(device)
+    params = _module_specs(tfm.Transformer(cfg, device="meta"))
+    b, s = shape.get("global_batch"), shape.get("seq_len")
+
+    if shape.kind == "train":
+        ocfg = opt_lib.OptimizerConfig(lr=3e-4, warmup_steps=50,
+                                       decay_steps=20_000)
+        if opt_memory_efficient:
+            ocfg = dataclasses.replace(ocfg, momentum_dtype="bfloat16",
+                                       factored_v=True)
+        init_opt, update = opt_lib.adamw(ocfg)
+
+        def train_step(params, opt_state, batch):
+            params.zero_grad(set_to_none=True)
+            labels = batch["labels"]
+            with torch.enable_grad():
+                logits = tfm.logits_train(params, batch["tokens"], cfg)
+                loss = L.cross_entropy(logits, labels)
+                ranks = sorting.gold_rank(logits.detach(), labels)
+                del logits  # autograd keeps what it needs, not these
+                loss.backward()
+            params, opt_state, info = update(_grads(params), opt_state,
+                                             params)
+            metrics = {"loss": loss.detach(), **info,
+                       **streaming.rank_metrics(ranks.reshape(-1))}
+            return params, opt_state, metrics
+
+        tokens = TensorSpec((b, s), I32)
+        return StepBundle(train_step, (params, _opt_specs(init_opt, params),
+                                       {"tokens": tokens, "labels": tokens}),
+                          dev, init_opt=init_opt)
+
+    if shape.kind == "prefill":
+        @torch.inference_mode()
+        def prefill_step(params, tokens, max_seq=None):
+            return tfm.prefill(params, tokens, cfg, max_seq=max_seq)
+
+        return StepBundle(prefill_step, (params, TensorSpec((b, s), I32)),
+                          dev)
+
+    if shape.kind == "decode":
+        kv = (cfg.n_layers, b, cfg.n_kv_heads, s, cfg.head_dim)
+
+        @torch.inference_mode()
+        def decode(params, cache, token, pos, gold):
+            logits, cache = tfm.decode_step(params, cache, token, pos, cfg)
+            ranks = sorting.gold_rank(logits, gold)
+            return logits, cache, streaming.rank_metrics(ranks)
+
+        cache = {"k": TensorSpec(kv, cfg.torch_dtype),
+                 "v": TensorSpec(kv, cfg.torch_dtype)}
+        return StepBundle(decode, (params, cache, TensorSpec((b,), I32),
+                                   TensorSpec((), I32),
+                                   TensorSpec((b,), I32)), dev)
+
+    raise ValueError(f"unsupported LM shape kind {shape.kind}")
 
 
 # ===========================================================================

@@ -2,9 +2,10 @@
 
 The JAX package keeps parameters as a pytree of nested dicts and lists;
 the port's modules name theirs after the same paths (``cin.0``,
-``attn.1.wq``, ``blocks.wqkv``, GatedGCN's stacked ``layers.w_node``
-``[L, D, 2D]``) with the same layouts, so carrying a pytree across is a
-copy.  JAX's optimizer state keeps m and v as flat lists in
+``attn.1.wq``, ``blocks.wqkv``, the stacked ``[L, ...]`` layers of
+GatedGCN and the transformer: ``layers.w_node``, ``layers.wq``,
+``layers.moe_gate``) with the same layouts, so carrying a pytree across
+is a copy; bfloat16 leaves (``ml_dtypes`` arrays) carry their bits.  JAX's optimizer state keeps m and v as flat lists in
 ``jax.tree.leaves`` order; :func:`load_jax_opt_state` keys them by the
 parameter names of that order.  The caller turns the pytrees' leaves into
 numpy arrays first (``jax.tree.map(np.asarray, tree)``); nothing here
@@ -54,8 +55,7 @@ def load_jax_params(module: nn.Module, params: Any) -> nn.Module:
                              f"{tuple(p.shape)}")
     with torch.no_grad():
         for name, p in own.items():
-            src = torch.from_numpy(np.array(flat[name], order="C"))
-            p.copy_(src.to(p.dtype))
+            p.copy_(_tensor(flat[name], "cpu", p.dtype))
     return module
 
 

@@ -1,9 +1,16 @@
-"""Shared building blocks: the recsys and GNN models' part of
-``repro.models.layers``."""
+"""Shared building blocks: the port of ``repro.models.layers``.
+
+Float32 math wherever JAX's is (norms, RoPE angles, softmax), cast back to
+the input's type.  ``jax.nn.gelu`` defaults to the tanh approximation, so
+``gelu_ffn`` asks ``F.gelu`` for it.
+"""
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+F32 = torch.float32
 
 
 def dense_init(gen: torch.Generator | None, d_in: int, d_out: int,
@@ -24,12 +31,66 @@ def normal(gen: torch.Generator | None, shape, scale: float,
     return (x * scale).to(dtype)
 
 
+def normal_in_dtype(gen: torch.Generator | None, shape, scale: float,
+                    dtype=F32, device=None) -> torch.Tensor:
+    """Normal draws of standard deviation ``scale`` made directly in
+    ``dtype`` (no float32 copy of a large tensor); ``gen=None`` only
+    allocates."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    return out if gen is None else out.normal_(0.0, scale, generator=gen)
+
+
 def nonparam_layernorm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """OLMo-style non-parametric LayerNorm (no scale/bias), in float32."""
     xf = x.to(torch.float32)
     mu = torch.mean(xf, dim=-1, keepdim=True)
     var = torch.var(xf, dim=-1, unbiased=False, keepdim=True)
     return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    xf = x.to(F32)
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.to(F32)).to(x.dtype)
+
+
+def norm(x: torch.Tensor, scale: torch.Tensor | None) -> torch.Tensor:
+    """Dispatch: ``scale`` None → non-parametric LN, else RMSNorm."""
+    if scale is None:
+        return nonparam_layernorm(x)
+    return rmsnorm(x, scale)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float = 10000.0) -> torch.Tensor:
+    """Rotary position embedding, halves not interleaved.  x ``[..., S, n,
+    head_dim]``, positions ``[..., S]``; angles in float32."""
+    half = x.shape[-1] // 2
+    freqs = torch.pow(theta, -torch.arange(0, half, dtype=F32,
+                                           device=x.device) / half)
+    angles = positions[..., None].to(F32) * freqs  # [..., S, half]
+    cos = torch.cos(angles)[..., None, :]  # [..., S, 1, half]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def swiglu(x, w_gate, w_up, w_down):
+    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def squared_relu_ffn(x, w_up, w_down):
+    return torch.square(torch.relu(x @ w_up)) @ w_down
+
+
+def gelu_ffn(x, w_up, w_down):
+    return F.gelu(x @ w_up, approximate="tanh") @ w_down
+
+
+def softmax_fp32(logits: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    return torch.softmax(logits.to(F32), dim=dim)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

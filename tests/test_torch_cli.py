@@ -111,8 +111,11 @@ def test_python_dash_m_repro_torch_runs_without_jax():
     nor the JAX package; nor do the recsys slice's modules (registry,
     steps, models, the EmbeddingBag wrapper), the eval arch, the service
     and its client, the training slice (the optimizer, GatedGCN, the
-    graph data, the weight and state converter) and the recsys and GNN
-    ``train`` steps when imported and built after it.  ``python -m
+    graph data, the weight and state converter), the LM slice (the
+    transformer, MoE, the Markov data, the trainer and its checkpoints),
+    the recsys and GNN ``train`` steps and the LM ``train``, ``prefill``
+    and ``decode`` steps when imported and built after it, and
+    ``examples/torch_train_lm.py --help``.  ``python -m
     repro_torch.baselines.trec_eval_cli`` prints what the JAX package's
     baseline prints, ``python -m repro_torch.serve --device cpu``
     answers over stdio, and ``python -m repro_torch.serve.cluster --help``
@@ -144,8 +147,15 @@ def test_python_dash_m_repro_torch_runs_without_jax():
         "g = get_arch('gatedgcn')\n"
         "g.make_step(g.make_config(True), g.shapes['molecule'], "
         "device='cpu')\n"
-        "assert list_archs() == ['autoint', 'gatedgcn', 'mind', "
-        "'pytrec-eval', 'sasrec', 'xdeepfm']\n"
+        "import repro_torch.models.transformer, repro_torch.models.moe, "
+        "repro_torch.train.trainer, repro_torch.train.checkpoint, "
+        "repro_torch.data.lm_data\n"
+        "o = get_arch('qwen3-moe-235b-a22b')\n"
+        "for s in ('train_4k', 'prefill_32k', 'decode_32k'):\n"
+        "    o.make_step(o.make_config(True), o.shapes[s], device='cpu')\n"
+        "assert list_archs() == ['arctic-480b', 'autoint', 'gatedgcn', "
+        "'mind', 'nemotron-4-15b', 'olmo-1b', 'phi3-medium-14b', "
+        "'pytrec-eval', 'qwen3-moe-235b-a22b', 'sasrec', 'xdeepfm']\n"
         "bad = [m for m in sys.modules if m == 'repro' "
         "or m.startswith(('repro.', 'jax.', 'jaxlib'))]\n"
         "assert not bad, bad\n")
@@ -191,3 +201,21 @@ def test_python_dash_m_repro_torch_runs_without_jax():
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.startswith("usage: python -m repro_torch.serve.cluster")
     assert "--device {cuda,cpu}" in out.stdout
+
+    example = os.path.join(os.path.dirname(__file__), "..", "examples",
+                           "torch_train_lm.py")
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import runpy, sys\n"
+         "sys.modules['jax'] = None\n"
+         f"sys.argv = [{example!r}, '--help']\n"
+         "try:\n"
+         f"    runpy.run_path({example!r}, run_name='__main__')\n"
+         "except SystemExit as e:\n"
+         "    assert e.code in (0, None), e.code\n"
+         "bad = [m for m in sys.modules if m == 'repro' "
+         "or m.startswith(('repro.', 'jax.', 'jaxlib'))]\n"
+         "assert not bad, bad\n"],
+        capture_output=True, text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "--device {cuda,cpu}" in out.stdout and "--ckpt-dir" in out.stdout

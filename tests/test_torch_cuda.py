@@ -16,8 +16,10 @@ fused measures) under ``torch.cuda.set_sync_debug_mode("error")``; smoke-size re
 on the card against the CPU; training: B3's backward kernel (empty mask,
 one bag, repeated rows, ``fields > 1``) bit for bit against the CPU and on
 two launches, the autograd Function, and smoke recsys and GatedGCN train
-steps (no host sync) with every gradient against the CPU's; and the
-experiment slice: the sweep on both
+steps (no host sync) with every gradient against the CPU's; the five LM
+smoke configs' ``train`` step (no host sync), ``prefill`` and four
+``decode`` steps against the CPU's, and the trainer's per-step times
+from CUDA events; and the experiment slice: the sweep on both
 backends (``single`` bit-identical to separate evaluations, ``sharded``
 through the fused kernel), significance on the card against the CPU,
 permutation p-values unchanged by TF32 and drawn from a generator on the
@@ -44,6 +46,7 @@ from repro_torch.core import trec
 from repro_torch.configs.common import smoke_shape
 from repro_torch.configs.gatedgcn import shape_config
 from repro_torch.data import graph_data as GD
+from repro_torch.data import lm_data as LD
 from repro_torch.data import recsys_data as RD
 from repro_torch.distributed import ShardedEvaluator
 from repro_torch.kernels import embedding_bag as EB
@@ -53,6 +56,8 @@ from repro_torch.launch.api import ShapeSpec, get_arch, to_device
 from repro_torch.launch.steps import MODELS
 from repro_torch.models import embedding as E
 from repro_torch.models.gnn import GatedGCN
+from repro_torch.models.transformer import Transformer
+from repro_torch.train.trainer import TrainConfig, Trainer
 
 pytestmark = pytest.mark.cuda
 
@@ -892,3 +897,86 @@ def test_gnn_train_step_on_cuda_matches_cpu(cuda, task):
         g, w = p.grad.cpu(), cpu_grads[n].grad
         assert bool(((g - w).abs() <= TOL * w.abs()
                      + TOL * float(w.abs().max())).all()), n
+
+
+@pytest.mark.parametrize("name", ["olmo-1b", "phi3-medium-14b",
+                                  "nemotron-4-15b", "qwen3-moe-235b-a22b",
+                                  "arctic-480b"])
+def test_lm_steps_on_cuda_match_cpu(cuda, name):
+    """A smoke LM's train step on the card (no host sync in it) against
+    the CPU's from the same weights: the metrics and every gradient leaf
+    within rtol 2e-4 plus atol 2e-4 · max|g|; then ``prefill`` (last
+    logits and the cache) and four ``decode`` steps (logits, the cache
+    written in place, the rank metrics) within 2e-4.  No kernel of the
+    port is launched."""
+    arch = get_arch(name)
+    cfg = arch.make_config(True)
+    b, s, n = 2, 16, 4
+    cpu_model = Transformer(cfg, device="cpu")
+    gpu_model = Transformer(cfg, device=cuda)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    tokens = LD.MarkovLM(LD.LMDataConfig(cfg.vocab_size, s + n, b,
+                                         seed=3)).batch(0)
+    batch = {k: v[:, :s] for k, v in tokens.items()}
+    shape = smoke_shape(arch.shapes["train_4k"], seq_len=s, global_batch=b)
+    gpu = arch.make_step(cfg, shape, device=cuda)
+    cpu = arch.make_step(cfg, shape, device="cpu")
+    launches = (EB.LAUNCHES, FM.LAUNCHES, TK.LAUNCHES)
+    dev_batch = to_device(batch, cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gpu_model, _, got = gpu.step_fn(gpu_model, gpu.init_opt(gpu_model),
+                                        dev_batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    cpu_model, _, want = cpu.step_fn(cpu_model, cpu.init_opt(cpu_model),
+                                     to_device(batch, "cpu"))
+    for k in want:
+        assert float(got[k]) == pytest.approx(float(want[k]), rel=TOL,
+                                              abs=TOL), k
+    cpu_grads = dict(cpu_model.named_parameters())
+    for n_, p in gpu_model.named_parameters():
+        g, w = p.grad.cpu(), cpu_grads[n_].grad
+        assert bool(((g - w).abs() <= TOL * w.abs()
+                     + TOL * float(w.abs().max())).all()), n_
+
+    pre = smoke_shape(arch.shapes["prefill_32k"], seq_len=s, global_batch=b)
+    dec = smoke_shape(arch.shapes["decode_32k"], seq_len=s, global_batch=b)
+    out = []
+    for dev, model in ((cuda, gpu_model), ("cpu", cpu_model)):
+        toks = torch.from_numpy(tokens["tokens"]).to(dev)
+        # the cache padded to s slots, then n tokens decoded into it
+        last, full = arch.make_step(cfg, pre, device=dev).step_fn(
+            model, toks[:, :s - n], max_seq=s)
+        step = arch.make_step(cfg, dec, device=dev).step_fn
+        rows = [last]
+        for pos in range(s - n, s):
+            logits, cache2, metrics = step(model, full, toks[:, pos], pos,
+                                           toks[:, pos + 1])
+            assert cache2 is full
+            rows += [logits, *metrics.values()]
+        out.append([r.cpu() for r in rows] + [full["k"].cpu(),
+                                              full["v"].cpu()])
+    for g, w in zip(*out):
+        torch.testing.assert_close(g.float(), w.float(), rtol=TOL, atol=TOL)
+    assert (EB.LAUNCHES, FM.LAUNCHES, TK.LAUNCHES) == launches
+
+
+def test_trainer_times_each_step_on_the_card(cuda):
+    """The trainer reads its step times from CUDA events at logged steps
+    only: a step whose work is slow on the device alone (the host returns
+    at once) is flagged as a straggler between two logged steps."""
+    def step(params, opt_state, batch):  # one step 10x the others' work
+        torch.cuda._sleep(200_000_000 if batch == 7 else 20_000_000)
+        return params, opt_state, {"loss": torch.full((), float(batch),
+                                                      device=cuda)}
+
+    trainer = Trainer(TrainConfig(total_steps=10, log_every=5), step, {},
+                      {}, iter(range(100)))
+    logs = []
+    assert trainer.run(log_fn=logs.append) == {"loss": 9.0}
+    assert len(trainer.monitor.times) == 10
+    assert trainer.monitor.flags == 1
+    assert [s for s in logs if s.startswith("[straggler]")] == [
+        s for s in logs if s.startswith("[straggler] step 8 ")]

@@ -188,8 +188,10 @@ def test_a_config_imported_alone_does_not_hide_the_others():
     env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
     code = ("from repro_torch.configs import pytrec_paper\n"
             "from repro_torch.launch.api import get_arch, list_archs\n"
-            "assert list_archs() == ['autoint', 'gatedgcn', 'mind', "
-            "'pytrec-eval', 'sasrec', 'xdeepfm'], list_archs()\n"
+            "assert list_archs() == ['arctic-480b', 'autoint', "
+            "'gatedgcn', 'mind', 'nemotron-4-15b', 'olmo-1b', "
+            "'phi3-medium-14b', 'pytrec-eval', 'qwen3-moe-235b-a22b', "
+            "'sasrec', 'xdeepfm'], list_archs()\n"
             "get_arch('xdeepfm')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120)

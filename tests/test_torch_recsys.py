@@ -190,9 +190,11 @@ def test_configs_and_shapes_match_jax(name, smoke):
 
 
 def test_registry_lists_the_ported_archs():
-    assert list_archs() == sorted(ARCHS + ("gatedgcn", "pytrec-eval"))
+    assert list_archs() == sorted(ARCHS + (
+        "gatedgcn", "pytrec-eval", "olmo-1b", "phi3-medium-14b",
+        "nemotron-4-15b", "qwen3-moe-235b-a22b", "arctic-480b"))
     with pytest.raises(KeyError):
-        get_arch("olmo-1b")
+        get_arch("gpt-5")
 
 
 def test_recsys_data_is_byte_identical_to_jax():
