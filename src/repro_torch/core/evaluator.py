@@ -622,6 +622,27 @@ class RelevanceEvaluator:
             results.append(out)
         return results
 
+    def evaluate_sharded(self, run_or_buffer, mesh=None):
+        """Evaluate with the query axis split over a device mesh.
+
+        Builds a :class:`repro_torch.distributed.ShardedEvaluator` over
+        ``mesh`` (a sequence of devices; default: every visible card for
+        an evaluator on CUDA, the evaluator's device on the CPU) and
+        evaluates ``run_or_buffer`` (a run mapping or a
+        :class:`RunBuffer`).  Returns a ``ShardedResult``: per-query rows
+        plus corpus-mean aggregates.
+
+        >>> ev = RelevanceEvaluator({'q1': {'d1': 1, 'd2': 0}}, {'map'},
+        ...                         device='cpu')
+        >>> res = ev.evaluate_sharded({'q1': {'d1': 0.2, 'd2': 0.9}},
+        ...                           mesh=['cpu'] * 2)
+        >>> res.per_query['q1']['map'], res.aggregates['map']
+        (0.5, 0.5)
+        """
+        from repro_torch.distributed.sharded_evaluator import ShardedEvaluator
+
+        return ShardedEvaluator(self, mesh=mesh).evaluate(run_or_buffer)
+
     # -- densification --------------------------------------------------------
 
     def _densify(self, run: RunType, qids: Sequence[str]):

@@ -1,9 +1,10 @@
 """Streaming (in-loop) evaluation: metrics as (sum, count) sufficient statistics.
 
-The port of ``repro.core.streaming`` on one device.  Every trec_eval
-measure is a per-query scalar, so the sufficient statistic for the corpus
-mean is just (sum, count): each step adds its queries' sums, one division
-at the end.
+The port of ``repro.core.streaming``.  Every trec_eval measure is a
+per-query scalar, so the sufficient statistic for the corpus mean is just
+(sum, count): each step adds its queries' sums, one division at the end;
+shards add their states (:func:`metric_merge` in one process, one
+``all_reduce`` in :func:`metric_finalize` over a process group).
 
 Usage inside a loop::
 
@@ -21,7 +22,7 @@ sort.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -104,8 +105,37 @@ def metric_update_cols(state: MetricState,
     return new
 
 
-def metric_finalize(state: MetricState) -> Dict[str, torch.Tensor]:
-    """Means over all accumulated queries."""
+def metric_merge(states: Sequence[MetricState], device) -> MetricState:
+    """Several states' (sum, count) added in order on ``device``: the
+    shards of one evaluation, reduced in one process.
+
+    >>> a = {"map": torch.tensor(1.5), "__count": torch.tensor(2.0)}
+    >>> b = {"map": torch.tensor(0.5), "__count": torch.tensor(1.0)}
+    >>> {k: float(v) for k, v in metric_merge([a, b], "cpu").items()}
+    {'map': 2.0, '__count': 3.0}
+    """
+    total = {k: v.to(device) for k, v in states[0].items()}
+    for state in states[1:]:
+        total = {k: v + state[k].to(device) for k, v in total.items()}
+    return total
+
+
+def metric_finalize(state: MetricState,
+                    group=None) -> Dict[str, torch.Tensor]:
+    """Means over all accumulated queries.
+
+    With a ``torch.distributed`` process group, every rank's (sum, count)
+    is first summed over the group by one ``all_reduce`` of the stacked
+    ``[sums..., count]`` vector: the torch form of the JAX package's
+    ``psum`` over ``axis_name``.  Every rank gets the same means.
+    """
+    if group is not None:
+        import torch.distributed as dist
+
+        keys = list(state)
+        vec = torch.stack([state[k] for k in keys])
+        dist.all_reduce(vec, op=dist.ReduceOp.SUM, group=group)
+        state = dict(zip(keys, vec.unbind()))
     denom = torch.clamp(state["__count"], min=1.0)
     return {k: v / denom for k, v in state.items() if k != "__count"}
 

@@ -30,8 +30,9 @@ serve from the CPU).  Nothing moves to the CPU on its own.
 
 Backend selection: per collection, ``"single"`` (the in-process evaluator),
 ``"sharded"`` (:class:`repro_torch.distributed.ShardedEvaluator`: the fused
-measure kernel on the service's device), or ``"auto"`` (sharded exactly
-when the service runs on CUDA and more than one card is visible).
+measure kernel, the query axis split over every visible card on CUDA),
+or ``"auto"`` (sharded exactly when the service runs on CUDA and more
+than one card is visible).
 Coalescing itself never changes values (either backend returns results
 bit-identical to its own per-request calls); between the two backends the
 usual fused-kernel caveat applies — count columns exact, float sums

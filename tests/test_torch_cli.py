@@ -105,7 +105,7 @@ def _without_jax(module, argv):
             "    assert e.code in (0, None), e.code\n")
 
 
-def test_python_dash_m_repro_torch_runs_without_jax():
+def test_python_dash_m_repro_torch_runs_without_jax(tmp_path):
     """``python -m repro_torch`` with ``jax`` blocked in ``sys.modules``:
     imports, evaluates and byte-matches the golden, loading neither JAX
     nor the JAX package; nor do the recsys slice's modules (registry,
@@ -120,7 +120,10 @@ def test_python_dash_m_repro_torch_runs_without_jax():
     baseline prints, ``python -m repro_torch.serve --device cpu``
     answers over stdio, and ``python -m repro_torch.serve.cluster --help``
     prints its flags, ``--device`` among them, all with ``jax`` blocked
-    too; ``repro_torch.serve.cluster`` imports without it."""
+    too; ``repro_torch.serve.cluster`` imports without it.  So do ``python
+    -m repro_torch.dev sharded-smoke``, ``python -m
+    repro_torch.analysis.roofline --help`` and ``python -m
+    repro_torch.distributed.collectives`` on a one-rank gloo group."""
     code = (
         "import runpy, sys\n"
         "sys.modules['jax'] = None\n"
@@ -219,3 +222,24 @@ def test_python_dash_m_repro_torch_runs_without_jax():
         capture_output=True, text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "--device {cuda,cpu}" in out.stdout and "--ckpt-dir" in out.stdout
+
+    # the tenth slice's entry points: the developer command's sharded
+    # smoke (its child imports the port only), the roofline's --help and
+    # the collectives' self-check on a one-rank gloo group
+    for module, argv, expect in (
+            ("repro_torch.dev", ["sharded-smoke", "--device", "cpu"],
+             "sharded 2-shard smoke: OK"),
+            ("repro_torch.analysis.roofline", ["--help"],
+             "usage: python -m repro_torch.analysis.roofline"),
+            ("repro_torch.distributed.collectives",
+             ["--device", "cpu", "--store", str(tmp_path / "store"),
+              "--rank", "0", "--world-size", "1"], '"world_size": 1')):
+        code = _without_jax(module, argv) + (
+            "bad = [m for m in sys.modules if m == 'repro' "
+            "or m.startswith(('repro.', 'jax.', 'jaxlib'))]\n"
+            "assert not bad, bad\n")
+        out = subprocess.run([sys.executable, "-c", code],
+                             capture_output=True, text=True, env=env,
+                             timeout=120)
+        assert out.returncode == 0, (module, out.stderr[-2000:])
+        assert expect in out.stdout, module

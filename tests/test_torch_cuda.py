@@ -24,8 +24,10 @@ backends (``single`` bit-identical to separate evaluations, ``sharded``
 through the fused kernel), significance on the card against the CPU,
 permutation p-values unchanged by TF32 and drawn from a generator on the
 card, the ranked engine against the sorted one, streaming, the Q-learning
-environment and ``python -m repro_torch.compare``.  Run on a machine
-with a GPU::
+environment and ``python -m repro_torch.compare``; the sharded
+evaluator over the mesh ``["cuda:0"] * n`` bit-identical to one shard,
+and int8 gradient compression on the card bit for bit the CPU's.  Run on
+a machine with a GPU::
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -190,6 +192,54 @@ def test_evaluator_on_cuda_matches_cpu(cuda):
             for k, v in cpu[qid].items():
                 assert gpu[qid][k] == pytest.approx(v, abs=TOL, rel=TOL), \
                     (qid, k)
+
+
+@pytest.mark.parametrize("n", [2, 3])
+def test_sharded_mesh_on_one_card_is_bit_identical_to_one_shard(cuda, n):
+    """The mesh ``["cuda:0"] * n`` splits the query axis (a second card is
+    not needed to exercise the split): every per-query row is the same
+    bits as one shard's, each shard launches B1 once."""
+    from repro_torch.data.synthetic_ir import synthesize_run
+
+    run, qrel = synthesize_run(40, 300, seed=5)
+    ev = RelevanceEvaluator(qrel, ["map", "ndcg", "P", "bpref", "num_ret",
+                                   "iprec_at_recall"], device=cuda)
+    one = ShardedEvaluator(ev, mesh=["cuda:0"]).evaluate(run)
+    before = FM.LAUNCHES
+    got = ShardedEvaluator(ev, mesh=["cuda:0"] * n).evaluate(run)
+    assert FM.LAUNCHES - before == n
+    assert got.per_query == one.per_query
+    for k, v in one.aggregates.items():
+        assert got.aggregates[k] == pytest.approx(v, abs=TOL, rel=TOL), k
+
+
+def test_int8_compression_on_the_card_is_the_cpus(cuda):
+    """quantize_int8 and compress_grads_int8 on the card: the int8
+    payload, the scale and the error state bit for bit the CPU's (true
+    divisions, round half to even)."""
+    from repro_torch.train import compression as C
+
+    rng = np.random.default_rng(4)
+    g = {"w": (rng.standard_normal((300, 70)) * 3).astype(np.float32),
+         "half": (rng.integers(-60, 60, 1000) + 0.5).astype(np.float32)}
+    g["half"][0] = 127.0
+    e = {"w": (rng.standard_normal((300, 70)) * 1e-2).astype(np.float32),
+         "half": np.zeros(1000, np.float32)}
+    cpu_g = {k: torch.from_numpy(v) for k, v in g.items()}
+    cpu_e = {k: torch.from_numpy(v) for k, v in e.items()}
+    gpu_g = {k: v.to(cuda) for k, v in cpu_g.items()}
+    gpu_e = {k: v.to(cuda) for k, v in cpu_e.items()}
+    want = C.compress_grads_int8(cpu_g, cpu_e)
+    got = C.compress_grads_int8(gpu_g, gpu_e)
+    for w_tree, g_tree in zip(want, got):
+        for k in w_tree:
+            assert torch.equal(g_tree[k].cpu(), w_tree[k]), k
+    assert float(got[1]["half"]) == 1.0
+    scale = torch.tensor(0.37)
+    for k in g:
+        w = C.quantize_int8(cpu_g[k], cpu_e[k], scale)
+        o = C.quantize_int8(gpu_g[k], gpu_e[k], scale.to(cuda))
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(o, w)), k
 
 
 @pytest.mark.parametrize("v,e,n_bags,l,case", [
