@@ -159,11 +159,34 @@ points a user calls:
   streaming aggregates (TOL), ``compressed_psum`` (none, bf16, int8) on
   a seeded gradient dict of SASRec's full-width parameter shapes bit for
   bit ``compressed_psum_plain`` on the CPU (int8: payload, scale and
-  error state, two steps).  Two ranks of ``python -m
+  error state, two steps); ``quantize_int8`` on NaN, +-inf, all-zero and
+  +-3e38 inputs against the CPU (values, NaN equal to NaN, and bits).
+  Two ranks of ``python -m
   repro_torch.distributed.collectives`` on cuda:0 in a gloo group, held
   against one process on the CPU, beside ``python -m repro_torch.dev
   sharded-smoke --device cuda``: started after the timed work, every
   child under a timeout.
+* P. Model-parallel serving over a ``DeviceMesh`` (``make_step(cfg,
+  shape, device, mesh)``).  P1: a NCCL group of one, mesh (1, 1): olmo-1b
+  at full width and depth (bfloat16; ``prefill`` of 4,096 tokens and 4
+  ``decode`` steps) and qwen3-moe at full width with QWEN3_LAYERS layers
+  (the expert-parallel branch with every expert local), each against the
+  same steps without a mesh from the same weights (within LM_BF16_TOL of
+  the largest logit; qwen3 under deterministic algorithms: the prefill
+  bit for bit, each decode step within LM_BF16_TOL, or P_MOE_TOL where a
+  token went to another expert, two planted routing faults that the
+  prefill must catch and one that decode must, finite),
+  phase E's SASRec ``retrieval_cand`` (top-k values and indices
+  identical) and xDeepFM ``serve_bulk`` (1e-4), B2 and B3 launched by
+  the mesh steps.  P2: two gloo ranks on cuda:0, mesh (1, 2), ``python
+  -m repro_torch.launch.sharded_serve --size card``: olmo-1b at full width
+  with 2 layers (1,024 tokens, 4 decode steps, the cache
+  sequence-sharded), SASRec's 10^6 candidates split in 2 (B2 a block and
+  the B2 merge), xDeepFM's table row-sharded in 2 (B3 a shard), each rank
+  against the unsharded steps, each shard's B2 and B3 launches as the C
+  entry points count them.  P3: ``python -m repro_torch.launch.dryrun``
+  on P_DRYRUN_CELLS on the (16, 16) and (2, 16, 16) fake meshes, every
+  record read by ``roofline.analyze``.  Every child has a timeout.
 * D. Each kernel against its plain PyTorch version on the main paths'
   inputs, with median times, the plain version's time, one PyTorch call's
   time where one computes the same function (``torch.topk``,
@@ -176,8 +199,12 @@ points a user calls:
   (``[4,096, 1,024]``), B2 at ``[1,024, 65,536]`` (phase C)
   and ``[1, 10^6]`` (phase E), B3's all-fields call at the ``serve_bulk``
   batch (phase E), with its general sort-and-CSR wrapper at one field's
-  bags beside it, and B3-bwd at phase T's train_batch bags (the backward
-  of ``F.embedding_bag`` timed beside it).
+  bags beside it, B3-bwd at phase T's train_batch bags (the backward
+  of ``F.embedding_bag`` timed beside it), and phase P's shards: B2 on
+  one of two candidate blocks (``[1, 500,000]``), B2's merge of the two
+  blocks' top 1,000 (``[1, 2,000]``, equal to one B2 over the row) and
+  B3 on one of two row shards of the xDeepFM table at the serve_bulk
+  bags.
 
 Every phase prints one JSON line; any failure raises and exits non-zero.
 The last lines are the card's ``nvidia-smi`` name and power limit and
@@ -188,6 +215,7 @@ repository's ``src/`` beside it, the script exits 1 and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import io
 import json
 import os
@@ -2935,24 +2963,44 @@ QWEN3_DECODE_STEPS = 4
 
 
 class _RouteLog:
-    """Every ``models.moe.route`` call's (gate values, token indices),
-    kept on their device, while the ``with`` block runs."""
+    """Every ``models.moe.route_experts`` call's (gate values, token
+    indices), kept on their device, while the ``with`` block runs (the
+    unsharded ``route`` and the mesh's expert-parallel branch both call
+    it).  ``alter(gate, idx)``, when given, replaces what each call
+    returns: a planted routing fault."""
+
+    def __init__(self, alter=None):
+        self.alter = alter
 
     def __enter__(self):
         from repro_torch.models import moe
 
-        self.calls, self._moe, self._route = [], moe, moe.route
+        self.calls, self._moe, self._route = [], moe, moe.route_experts
 
-        def route(x2d, router, cfg):
-            out = self._route(x2d, router, cfg)
+        def route_experts(*args, **kwargs):
+            out = self._route(*args, **kwargs)
+            if self.alter is not None:
+                out = self.alter(*out)
             self.calls.append(tuple(t.detach() for t in out))
             return out
 
-        moe.route = route
+        moe.route_experts = route_experts
         return self
 
+    def take(self):
+        """The (expert, token) pairs that each call since the last take
+        held, on the host."""
+        import torch
+
+        calls, self.calls = self.calls, []
+        out = []
+        for g, i in calls:
+            e, c = torch.nonzero(g > 0, as_tuple=True)
+            out.append(tuple(zip(e.tolist(), i[e, c].tolist())))
+        return tuple(out)
+
     def __exit__(self, *exc):
-        self._moe.route = self._route
+        self._moe.route_experts = self._route
 
 
 def _slot_table(gate, idx, n_tokens):
@@ -3429,10 +3477,12 @@ def _spawn(args, env):
                             text=True)
 
 
-def _finish(procs, what):
-    """Wait for every process (GROUP_TIMEOUT in all); kill them all and
-    fail past it, or if one exits non-zero.  Returns their stdout."""
-    deadline = time.monotonic() + GROUP_TIMEOUT
+def _finish(procs, what, timeout=None):
+    """Wait for every process (``timeout``, default GROUP_TIMEOUT, in
+    all); kill them all and fail past it, or if one exits non-zero.
+    Returns their stdout."""
+    timeout = timeout or GROUP_TIMEOUT
+    deadline = time.monotonic() + timeout
     outs = []
     try:
         for p in procs:
@@ -3443,7 +3493,7 @@ def _finish(procs, what):
             p.kill()
         for p in procs:
             p.communicate()
-        raise SmokeFailure(f"{what} did not finish in {GROUP_TIMEOUT} s")
+        raise SmokeFailure(f"{what} did not finish in {timeout} s")
     for p, (_, err) in zip(procs, outs):
         check(p.returncode == 0, f"{what} exited {p.returncode}: "
               f"{err[-2000:]}")
@@ -3582,9 +3632,62 @@ def _nccl_world1(batch, sasrec, seed, device):
             lambda: TC.compressed_psum(grads, "int8", err), iters=5,
             warmup=1)
         out["int8_bit_for_bit_steps"] = PSUM_INT8_STEPS
+        out["int8_edge_cases"] = int8_edge_cases(device)
         return out
     finally:
         dist.destroy_process_group()
+
+
+#: quantize_int8 inputs whose rounding or scale could differ between the
+#: card and the CPU: NaN, +-inf, all zeros, values near the float32 limit
+INT8_EDGE_CASES = {
+    "nan": [float("nan"), 1.0, -2.0, 0.5],
+    "inf": [float("inf"), 1.0, -3.0],
+    "minus_inf": [-float("inf"), 2.0, 0.25],
+    "nan_and_inf": [float("nan"), float("inf"), -1.0],
+    "zeros": [0.0] * 5,
+    "near_max": [3e38, -3e38, 1.0, -1e38],
+}
+
+
+def int8_edge_cases(device):
+    """``train.compression.quantize_int8`` on INT8_EDGE_CASES (with and
+    without an error state) on the card against the CPU: q, scale and
+    error as values (NaN equal to NaN) and as bits, with the bits where
+    they differ."""
+    import torch
+
+    from repro_torch.train import compression as C
+
+    out = {}
+    for name, values in INT8_EDGE_CASES.items():
+        x = torch.tensor(values, dtype=torch.float32)
+        err = torch.linspace(-0.1, 0.1, len(values))
+        for label, e in (("no_error", None), ("error", err)):
+            cpu = C.quantize_int8(x, e)
+            card = [t.cpu() for t in C.quantize_int8(
+                x.to(device), None if e is None else e.to(device))]
+            same = [torch.equal(a, b) or (a.is_floating_point() and bool(
+                ((a == b) | (torch.isnan(a) & torch.isnan(b))).all()))
+                for a, b in zip(card, cpu)]
+            bits = [a.numpy().tobytes() == b.numpy().tobytes()
+                    for a, b in zip(card, cpu)]
+            key = f"{name}/{label}"
+            out[key] = {"identical": all(same), "same_bits": all(bits)}
+            if not all(bits):
+                out[key].update({
+                    "card_bits": [a.view(torch.int32).tolist() if
+                                  a.is_floating_point() else a.tolist()
+                                  for a in card],
+                    "cpu_bits": [a.view(torch.int32).tolist() if
+                                 a.is_floating_point() else a.tolist()
+                                 for a in cpu]})
+    out["all_identical"] = all(v["identical"] for v in out.values())
+    out["all_same_bits"] = all(v["same_bits"] for v in out.values()
+                               if isinstance(v, dict))
+    check(out["all_identical"], "quantize_int8 on NaN / inf / zeros / "
+          "near-max inputs: the card's values differ from the CPU's")
+    return out
 
 
 def _gloo_ranks(outdir, seed, device):
@@ -3686,6 +3789,484 @@ def phase_sharded(device, paper, recsys, seed):
     return result, result["meshes"]
 
 
+#: phase P: model-parallel serving over a DeviceMesh
+P_PREFILL = 4096  # P1's prompt (olmo-1b and qwen3-moe), batch 1
+P_DECODE_STEPS = 4
+P_RANKS = 2  # P2: gloo ranks sharing cuda:0, mesh (1, 2)
+P2_SIZE = "card"  # sharded_serve's sizes: full widths
+P_TIMEOUT = 300  # seconds: P2's ranks, and P3's dry run
+P_DRYRUN_CELLS = ("olmo-1b:prefill_32k", "olmo-1b:decode_32k",
+                  "qwen3-moe-235b-a22b:decode_32k", "arctic-480b:decode_32k",
+                  "sasrec:retrieval_cand")
+#: P1's MoE gap (max |diff| over the largest logit) at a decode step
+#: whose routes differ from the unsharded step's: five times phase L's
+#: bfloat16 limit.  The comparison runs with deterministic algorithms
+#: (without, the combine's bfloat16 index_add adds in no fixed order and
+#: the unsharded step alone differed from itself by up to 0.056 on an
+#: H100).  There the prefill is bit for bit, decode steps with equal
+#: routes reached 0.0071 and those with a rerouted token 0.052; of the
+#: planted faults (P_MOE_FAULTS) the expert offset moved each decode step
+#: 0.49-0.57, one expert dropped 0.045-0.073 (the prefill, 0.042,
+#: catches it)
+P_MOE_TOL = 5 * LM_BF16_TOL
+
+
+def _fault_offset(gate, idx):
+    """Expert e's tokens to expert e + 1's weights: an expert offset
+    wrong by one."""
+    return gate.roll(1, 0), idx.roll(1, 0)
+
+
+def _fault_drop(gate, idx):
+    """Expert 0's output dropped."""
+    gate = gate.clone()
+    gate[0] = 0.0
+    return gate, idx
+
+
+P_MOE_FAULTS = {"offset": _fault_offset, "drop": _fault_drop}
+
+
+@contextlib.contextmanager
+def _deterministic(on=True):
+    """``torch.use_deterministic_algorithms`` (warnings only, where an op
+    has no deterministic form) while the block runs, when ``on``."""
+    import torch
+
+    if not on:
+        yield
+        return
+    was = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn)
+#: P2's retrieval against the unsharded step: each candidate block's
+#: scores come from a product of another width, so a value may move by a
+#: rounding; indices may then swap only between values this close
+P_RETRIEVAL_TOL = 1e-5
+
+
+def _mesh_of_one(device):
+    """A NCCL group of one rank (gloo off the card) and its (1, 1) mesh."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    kw = {}
+    if device == "cuda":
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+        kw["device_id"] = torch.device("cuda", 0)
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            store=dist.HashStore(), rank=0, world_size=1,
+                            timeout=timedelta(seconds=60), **kw)
+    return make_host_mesh(1, device="cuda:0" if device == "cuda"
+                          else device)
+
+
+def _full(t):
+    from repro_torch.distributed.sharding import full_tensor
+
+    return full_tensor(t)
+
+
+def _rel_gap(got, want):
+    """max |got - want| over max |want| (phase L's bfloat16 measure)."""
+    import torch
+
+    got, want = _full(got).float(), _full(want).float()
+    check(bool(torch.isfinite(got).all()), "non-finite logits")
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _p1_lm(name, layers, mesh, seed, device):
+    """``prefill`` of P_PREFILL tokens and P_DECODE_STEPS ``decode`` steps
+    through ``make_step(..., mesh)`` against the same steps without a
+    mesh, from the same seeded weights: logits within LM_BF16_TOL of the
+    largest (phase L's gate), ms of each."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.common import smoke_shape
+    from repro_torch.launch.api import get_arch
+    from repro_torch.models import transformer as TF
+
+    arch = get_arch(name)
+    full = arch.make_config(False)
+    cfg = dataclasses.replace(full, n_layers=layers or full.n_layers)
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model = TF.Transformer(cfg, device=device, generator=gen)
+    s, n = P_PREFILL, P_DECODE_STEPS
+    rng = np.random.default_rng(seed + 7)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, s + n + 1))
+                              .astype(np.int32)).to(device)
+    pre = smoke_shape(arch.shapes["prefill_32k"], seq_len=s, global_batch=1)
+    dec = smoke_shape(arch.shapes["decode_32k"], seq_len=s + n,
+                      global_batch=1)
+    runs = {}
+    modes = [("mesh", mesh, None), ("plain", None, None)]
+    if cfg.moe is not None:
+        # the unsharded step again (bit for bit, deterministic), and the
+        # unsharded step with a planted routing fault each
+        modes += [("plain_again", None, None)] + [
+            (f"fault_{k}", None, f) for k, f in P_MOE_FAULTS.items()]
+    with _deterministic(cfg.moe is not None):
+        for label, m, alter in modes:
+            bp = arch.make_step(cfg, pre, device, m)
+            bd = arch.make_step(cfg, dec, device, m)
+            bp.step_fn(model, tokens[:, :s])  # warm-up
+            with _RouteLog(alter) as log:
+                (last, cache), sec = _synced(
+                    lambda: bp.step_fn(model, tokens[:, :s], max_seq=s + n))
+                out = {"logits": [_full(last).float()],
+                       "prefill_ms": sec * 1e3, "decode_ms": [],
+                       "metrics": [], "routes": [log.take()]}
+                for pos in range(s, s + n):
+                    (logits, cache, metrics), sec = _synced(
+                        lambda: bd.step_fn(model, cache, tokens[:, pos], pos,
+                                           tokens[:, pos + 1]))
+                    out["logits"].append(_full(logits).float())
+                    out["decode_ms"].append(sec * 1e3)
+                    out["metrics"].append({k: float(v)
+                                           for k, v in metrics.items()})
+                    out["routes"].append(log.take())
+            runs[label] = out
+            del cache
+
+    def gaps_to_plain(label):
+        return [_rel_gap(g, w) for g, w in zip(runs[label]["logits"],
+                                               runs["plain"]["logits"])]
+
+    gaps = gaps_to_plain("mesh")
+    same = [a == b for a, b in zip(runs["mesh"]["routes"],
+                                   runs["plain"]["routes"])]
+    limit, spread, faults = LM_BF16_TOL, None, None
+    if cfg.moe is None:
+        check(max(gaps) <= limit,
+              f"P1 {name}: the (1, 1) mesh's logits {max(gaps)} of the "
+              f"largest from the unsharded step's (limit {limit})")
+    else:
+        # deterministic index_add: the unsharded step is its own double,
+        # and the mesh's prefill (every collective of size 1, every
+        # product of the unsharded shape) is the unsharded one bit for
+        # bit, where each planted fault shows.  Decode sums the softmax
+        # flash-decoding style: phase L's gate where the routes agree,
+        # P_MOE_TOL where a rounding moved a token to another expert,
+        # which the planted expert offset must exceed
+        spread = gaps_to_plain("plain_again")
+        faults = {k: gaps_to_plain(f"fault_{k}") for k in P_MOE_FAULTS}
+        check(max(spread) == 0.0,
+              f"P1 {name}: the deterministic unsharded step differs from "
+              f"itself by {max(spread)} of the largest logit")
+        check(gaps[0] == 0.0 and same[0],
+              f"P1 {name}: the (1, 1) mesh's prefill is {gaps[0]} of the "
+              f"largest logit from the unsharded one (routes equal: "
+              f"{same[0]}); it must be bit for bit")
+        for t, (gap, ok) in enumerate(zip(gaps[1:], same[1:])):
+            lim = LM_BF16_TOL if ok else P_MOE_TOL
+            check(gap <= lim, f"P1 {name}: decode step {t} is {gap} of the "
+                  f"largest logit from the unsharded one (routes equal: "
+                  f"{ok}; limit {lim})")
+        for k, g in faults.items():
+            check(g[0] > 0.0, f"P1 {name}: the prefill check misses the "
+                  f"planted fault {k}")
+        check(min(faults["offset"][1:]) > P_MOE_TOL,
+              f"P1 {name}: a planted expert offset moves a decode step "
+              f"only {min(faults['offset'][1:])} of the largest logit "
+              f"(limit {P_MOE_TOL})")
+        limit = {"prefill": 0.0, "decode_routes_equal": LM_BF16_TOL,
+                 "decode_routes_differ": P_MOE_TOL}
+    res = {"layers": cfg.n_layers, "of_layers": full.n_layers,
+           "prompt": s, "decode_steps": n, "rel_gaps": gaps,
+           "plain_run_to_run_gaps": spread, "limit": limit,
+           "planted_fault_gaps": faults,
+           "routes_equal": same,
+           "metrics_equal": runs["mesh"]["metrics"]
+           == runs["plain"]["metrics"]}
+    for label, out in runs.items():
+        res[label] = {"prefill_ms": out["prefill_ms"],
+                      "decode_ms": out["decode_ms"]}
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def _p1_recsys(recsys, mesh, seed, device):
+    """SASRec ``retrieval_cand`` and xDeepFM ``serve_bulk`` (phase E's
+    models and inputs) on the (1, 1) mesh against the unsharded steps:
+    top-k values and indices identical, scores within SCORE_TOL."""
+    import torch
+
+    from repro_torch.launch.api import get_arch
+
+    out = {}
+    launches = {}
+
+    def on_mesh(step, *args):
+        """The mesh step's call, its launches counted (not the
+        unsharded step's, which it is held against)."""
+        zero_launches()
+        out = _synced(lambda: step(*args))
+        for k, v in read_launches().items():
+            launches[k] = launches.get(k, 0) + v
+        return out
+
+    model, cfg, _, dev_args = recsys["sasrec"]
+    arch = get_arch("sasrec")
+    shape = arch.shapes["retrieval_cand"]
+    want = arch.make_step(cfg, shape, device).step_fn(model, *dev_args)
+    got, sec = on_mesh(arch.make_step(cfg, shape, device, mesh).step_fn,
+                       model, *dev_args)
+    check(torch.equal(got[1], want[1]) and torch.equal(got[0], want[0]),
+          "P1 SASRec retrieval: top-k differs from the unsharded step's")
+    check(all(float(got[2][k]) == float(want[2][k]) for k in want[2]),
+          "P1 SASRec retrieval: metrics differ")
+    out["sasrec_retrieval"] = {"identical": True, "ms": sec * 1e3}
+    model, cfg, batch = recsys["xdeepfm"]
+    arch = get_arch("xdeepfm")
+    shape = arch.shapes["serve_bulk"]
+    want = arch.make_step(cfg, shape, device).step_fn(model, batch)
+    got, sec = on_mesh(arch.make_step(cfg, shape, device, mesh).step_fn,
+                       model, batch)
+    out["xdeepfm_serve_bulk"] = {
+        "ms": sec * 1e3,
+        "max_abs_err": _check_close(_full(got), want, "P1 xDeepFM serve")}
+    out["launches"] = launches
+    return out
+
+
+def _topk_agree(got_v, got_i, want_v, want_i, tol, what):
+    """Values within ``tol``; an index may differ only where its value is
+    within ``tol`` of the next or previous one (a near tie reordered)."""
+    check(np.allclose(got_v, want_v, atol=tol, rtol=tol, equal_nan=True),
+          f"{what}: values beyond {tol}")
+    moved = np.nonzero(got_i != want_i)[1] if got_i.ndim == 2 else \
+        np.nonzero(got_i != want_i)[0]
+    v = want_v.reshape(-1)
+    near = [(j > 0 and abs(v[j] - v[j - 1]) <= tol)
+            or (j + 1 < len(v) and abs(v[j + 1] - v[j]) <= tol)
+            for j in moved]
+    check(all(near), f"{what}: indices differ away from near ties")
+    return {"max_abs_err": float(np.nan_to_num(np.abs(got_v - want_v)).max()),
+            "indices_moved": int(len(moved))}
+
+
+def _p2(seed, device, tmp):
+    """Two gloo ranks on cuda:0, mesh (1, 2): ``python -m
+    repro_torch.launch.sharded_serve --size card`` (olmo-1b at full width
+    with 2 layers, SASRec's 10^6 candidates split in 2, xDeepFM's
+    serve_bulk with the table row-sharded), each rank against the
+    unsharded steps in its own process; each shard's B2 and B3 launches
+    as the C entry points count them."""
+    env = _src_env()
+    rank_device = "cuda:0" if device == "cuda" else device
+    cases = "lm:olmo-1b,retrieval:sasrec,serve:xdeepfm"
+    t0 = time.perf_counter()
+    procs = [_spawn(["-m", "repro_torch.launch.sharded_serve", "--size",
+                     P2_SIZE, "--mesh", f"1x{P_RANKS}", "--device",
+                     rank_device, "--backend", "gloo", "--cases", cases,
+                     "--seed", str(seed), "--store",
+                     os.path.join(tmp, "store"), "--rank", str(r),
+                     "--world-size", str(P_RANKS), "--out",
+                     os.path.join(tmp, "out")], env)
+             for r in range(P_RANKS)]
+    outs = _finish(procs, "P2's ranks", P_TIMEOUT)
+    res = {"ranks": P_RANKS, "mesh": [1, P_RANKS], "backend": "gloo",
+           "device": rank_device, "cases": cases.split(","),
+           "children_s": time.perf_counter() - t0, "shards": []}
+    for r, text in enumerate(outs):
+        line = json.loads(text.strip().splitlines()[-1])
+        res["shards"].append({"rank": r, "launches": line["launches"],
+                              "case_seconds": line["case_seconds"]})
+        for case in ("retrieval:sasrec", "serve:xdeepfm"):
+            got = line["launches"][case]
+            check(got["embedding_bag"] >= 1,
+                  f"P2 rank {r} {case}: B3 not launched on its shard")
+        # B2 on the rank's candidate block, then the merge
+        got = line["launches"]["retrieval:sasrec"]
+        check(got["topk_block"] >= 1 and got["topk_merge"] >= 1,
+              f"P2 rank {r}: B2 not launched on its block and the merge: "
+              f"{got}")
+        data = dict(np.load(os.path.join(tmp, "out", f"rank{r}.npz")))
+        key = "lm:olmo-1b"
+        gaps = []
+        for k in data:
+            if k.startswith(f"{key}/got/") and "metrics" not in k:
+                w = data[k.replace("/got/", "/want/")]
+                gaps.append(float(np.abs(data[k] - w).max()
+                                  / np.abs(w).max()))
+        check(max(gaps) <= LM_BF16_TOL,
+              f"P2 rank {r} olmo-1b: logits {max(gaps)} of the largest from "
+              f"the unsharded step's (limit {LM_BF16_TOL})")
+        cache = {c: data[f"{key}/{c}_max_abs_diff"]
+                 / data[f"{key}/{c}_max_abs"] for c in ("cache_k", "cache_v")}
+        check(max(cache.values()) <= LM_BF16_TOL,
+              f"P2 rank {r} olmo-1b: cache {cache}")
+        ret = _topk_agree(data["retrieval:sasrec/got/0"],
+                          data["retrieval:sasrec/got/1"],
+                          data["retrieval:sasrec/want/0"],
+                          data["retrieval:sasrec/want/1"], P_RETRIEVAL_TOL,
+                          f"P2 rank {r} SASRec retrieval")
+        got, want = data["serve:xdeepfm/got"], data["serve:xdeepfm/want"]
+        check(np.allclose(got, want, atol=SCORE_TOL, rtol=SCORE_TOL),
+              f"P2 rank {r} xDeepFM serve_bulk beyond {SCORE_TOL}")
+        res["shards"][-1].update({
+            "olmo_rel_gaps_max": max(gaps), "olmo_cache_rel_gaps": cache,
+            "sasrec_retrieval": ret,
+            "xdeepfm_max_abs_err": float(np.abs(got - want).max())})
+    return res
+
+
+def _p3(tmp):
+    """The dry run in a child: P_DRYRUN_CELLS on the (16, 16) and
+    (2, 16, 16) fake meshes; ``roofline.analyze`` reads every record."""
+    from repro_torch.analysis import roofline
+
+    out = os.path.join(tmp, "dryrun")
+    args = ["-m", "repro_torch.launch.dryrun", "--out", out]
+    for cell in P_DRYRUN_CELLS:
+        args += ["--cell", cell]
+    t0 = time.perf_counter()
+    _finish([_spawn(args, _src_env())], "P3's dry run", P_TIMEOUT)
+    res = {"child_s": time.perf_counter() - t0, "cells": {}}
+    for name in sorted(os.listdir(out)):
+        with open(os.path.join(out, name)) as fh:
+            rec = json.load(fh)
+        check(rec["status"] == "ok", f"P3 {name}: {rec.get('error')}")
+        a = roofline.analyze(rec)
+        check(a is not None, f"P3 {name}: roofline.analyze read nothing")
+        check(rec["collectives"]["total"] > 0, f"P3 {name}: no collective")
+        res["cells"][name[:-5]] = {
+            "n_chips": rec["n_chips"], "flops_per_device":
+            rec["cost"]["flops"], "bytes_per_device":
+            rec["cost"]["bytes accessed"], "collective_bytes_per_device":
+            rec["collectives"]["total"], "peak_bytes_per_device":
+            rec["memory"]["peak_bytes"], "dominant": a["dominant"],
+            "compute_s": a["compute_s"], "memory_s": a["memory_s"],
+            "collective_s": a["collective_s"], "step_s": rec["total_s"]}
+    check(len(res["cells"]) == 2 * len(P_DRYRUN_CELLS),
+          f"P3 wrote {len(res['cells'])} records")
+    return res
+
+
+def shard_rows(recsys, p2):
+    """Kernel rows of phase P's shards on the card: B2 on one of two
+    candidate blocks of phase E's ``[1, 10^6]`` SASRec scores, B2's merge
+    of the two blocks' top 1,000, and B3 on one of two row shards of the
+    xDeepFM table at the serve_bulk batch (the vocab-parallel lookup's
+    partial sums), each against its plain version; launches as P2's rank
+    0 counted them (B2's split into its block call's and its merge's)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import embedding_bag as EB
+    from repro_torch.kernels import topk as TK
+    from repro_torch.launch.steps import merge_topk
+
+    launches = p2["shards"][0]["launches"]
+    scores = recsys["retrieval_scores"]
+    half = scores.shape[1] // P_RANKS
+    blocks = [scores[:, r * half:(r + 1) * half].contiguous()
+              for r in range(P_RANKS)]
+    k = 1000
+    rows = [topk_row(blocks[0], k,
+                     launches["retrieval:sasrec"]["topk_block"], split=True)]
+    rows[-1].update(shards=P_RANKS, on="a candidate block")
+    tops = [TK.topk(b, k) for b in blocks]
+    vals = torch.cat([v for v, _ in tops], 1).contiguous()
+    idx = torch.cat([i + r * half for r, (_, i) in enumerate(tops)], 1)
+    mv, mi = merge_topk(vals, idx, k)
+    wv, wi = TK.topk(scores, k)
+    check(torch.equal(mi, wi) and torch.equal(mv, wv),
+          "B2's merge of the blocks differs from one B2 over the row")
+    rows.append(topk_row(vals, k, launches["retrieval:sasrec"]["topk_merge"],
+                         split=False))
+    rows[-1].update(shards=P_RANKS, on="the merge of the blocks' top-k")
+
+    model, cfg, batch = recsys["xdeepfm"]
+    table = model.table.detach()
+    v = table.shape[0]
+    local = table[:-(-v // P_RANKS)]  # rank 0's rows
+    ids, mask = batch["mh_ids"], batch["mh_mask"]
+    b, f, m = ids.shape
+    rows_g = (ids + (torch.arange(f, device=ids.device, dtype=ids.dtype)
+                     * cfg.table.vocab_per_field)[None, :, None]).reshape(
+                         b * f, m)
+    hit = (rows_g < local.shape[0]) & mask.reshape(b * f, m)
+    lids = torch.where(hit, rows_g, torch.zeros_like(rows_g)).contiguous()
+    hit = hit.contiguous()
+    got = EB.embedding_bag_fixed(local, lids, hit)
+    plain = EB.embedding_bag_fixed_plain(local, lids, hit)
+    torch.cuda.synchronize()
+    check(bool((got == plain).all()),
+          "B3 on a row shard differs from its plain version")
+    e, l = local.shape[1], b * f * m
+    held = int(hit.sum())
+    unique = int(torch.unique(lids[hit]).numel())
+    nbytes = unique * e * 4 + l * 5 + b * f * e * 4
+    rows.append(dict(
+        name="embedding_bag", route="cuda",
+        source="src/repro_torch/csrc/embedding_bag.cu",
+        replaces="src/repro/kernels/embedding_bag.py:34",
+        launches=launches["serve:xdeepfm"]["embedding_bag"],
+        max_abs_err=float((got - plain).abs().max()),
+        ms=time_ms(lambda: EB.embedding_bag_fixed(local, lids, hit)),
+        plain_ms=time_ms(lambda: EB.embedding_bag_fixed_plain(local, lids,
+                                                              hit)),
+        shape=[int(local.shape[0]), e, l, b * f], held_lookups=held,
+        unique_rows=unique, shards=P_RANKS, on="a row shard of the table",
+        **bound(nbytes, 2 * l * e),
+        library_ms=time_ms(lambda: F.embedding_bag(
+            lids.long(), local, mode="sum",
+            per_sample_weights=hit.to(torch.float32)))))
+    return rows
+
+
+def phase_parallel(device, recsys, seed):
+    """P1 (a NCCL group of one, mesh (1, 1): olmo-1b at full width and
+    depth, qwen3-moe at full width with QWEN3_LAYERS layers through the EP
+    branch, SASRec retrieval, xDeepFM serve_bulk, each against the step
+    without a mesh), P2 (two gloo ranks on cuda:0), P3 (the dry run)."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    result = {"phase": "P"}
+    t0 = time.perf_counter()
+    mesh = _mesh_of_one(device)
+    try:
+        p1 = {"olmo-1b": _p1_lm("olmo-1b", None, mesh, seed, device),
+              "qwen3-moe-235b-a22b": _p1_lm("qwen3-moe-235b-a22b",
+                                            QWEN3_LAYERS, mesh, seed,
+                                            device)}
+        p1.update(_p1_recsys(recsys, mesh, seed, device))
+    finally:
+        dist.destroy_process_group()
+    check(p1["launches"]["topk"] > 0 and p1["launches"]["embedding_bag"] > 0,
+          f"P1's mesh steps did not launch B2 and B3: {p1['launches']}")
+    p1["seconds"] = time.perf_counter() - t0
+    result["P1"] = p1
+    tmp = tempfile.mkdtemp(prefix="phase_p_")
+    try:
+        t0 = time.perf_counter()
+        result["P2"] = _p2(seed, device, tmp)
+        result["P2"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        result["P3"] = _p3(tmp)
+        result["P3"]["seconds"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return result, result["P2"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3746,6 +4327,7 @@ def main(argv=None) -> int:
     out_t, train = timed(phase_train, "cuda", args.seed)
     timed(phase_lm, "cuda", args.seed)
     _, meshes = timed(phase_sharded, "cuda", paper, recsys, args.seed)
+    _, p2 = timed(phase_parallel, "cuda", recsys, args.seed)
     launches = {"fused_measures": out_b["launches"]["fused_measures"],
                 "fused_measures_sweep": out_f["launches"]["fused_measures"],
                 "fused_measures_deep":
@@ -3761,6 +4343,7 @@ def main(argv=None) -> int:
         train["b3_backward"],
         train["xdeepfm_launches"]["embedding_bag_backward"],
         out_t["b3_backward"]["max_abs_err"]))
+    rows.extend(shard_rows(recsys, p2))
     emit({"phase": "D", "seconds": time.perf_counter() - t0})
     emit({"kernels": rows})
     print(card, flush=True)

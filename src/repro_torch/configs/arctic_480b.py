@@ -28,10 +28,11 @@ def make_config(smoke: bool = False) -> TransformerConfig:
         dtype="bfloat16", remat=True)
 
 
-def _make_step(cfg, shape, device=None):
+def _make_step(cfg, shape, device=None, mesh=None):
     from repro_torch.launch.steps import lm_step_bundle
 
-    return lm_step_bundle(cfg, shape, device, opt_memory_efficient=True)
+    return lm_step_bundle(cfg, shape, device, opt_memory_efficient=True,
+                          mesh=mesh, fsdp=True)
 
 
 ARCH = register(ArchDef(

@@ -23,10 +23,10 @@ def make_config(smoke: bool = False) -> CTRConfig:
         n_attn_layers=3, n_attn_heads=2, d_attn=32)
 
 
-def _make_step(cfg, shape, device=None):
+def _make_step(cfg, shape, device=None, mesh=None):
     from repro_torch.launch.steps import recsys_step_bundle
 
-    return recsys_step_bundle("autoint", cfg, shape, device)
+    return recsys_step_bundle("autoint", cfg, shape, device, mesh)
 
 
 ARCH = register(ArchDef(

@@ -57,10 +57,11 @@ def shape_config(cfg: GatedGCNConfig, shape: ShapeSpec) -> GatedGCNConfig:
         n_classes=shape.get("n_classes", cfg.n_classes))
 
 
-def _make_step(cfg, shape, device=None):
+def _make_step(cfg, shape, device=None, mesh=None):
     from repro_torch.launch.steps import gnn_step_bundle
 
-    return gnn_step_bundle(shape_config(cfg, shape), shape, device)
+    return gnn_step_bundle(shape_config(cfg, shape), shape, device,
+                           mesh)
 
 
 ARCH = register(ArchDef(

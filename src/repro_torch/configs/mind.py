@@ -24,10 +24,10 @@ def make_config(smoke: bool = False) -> CTRConfig:
         n_interests=4, capsule_iters=3, hist_len=50)
 
 
-def _make_step(cfg, shape, device=None):
+def _make_step(cfg, shape, device=None, mesh=None):
     from repro_torch.launch.steps import recsys_step_bundle
 
-    return recsys_step_bundle("mind", cfg, shape, device)
+    return recsys_step_bundle("mind", cfg, shape, device, mesh)
 
 
 ARCH = register(ArchDef(

@@ -23,10 +23,10 @@ def make_config(smoke: bool = False) -> TransformerConfig:
         norm="nonparam", tie_embeddings=True, dtype="bfloat16", remat=True)
 
 
-def _make_step(cfg, shape, device=None):
+def _make_step(cfg, shape, device=None, mesh=None):
     from repro_torch.launch.steps import lm_step_bundle
 
-    return lm_step_bundle(cfg, shape, device)
+    return lm_step_bundle(cfg, shape, device, mesh=mesh)
 
 
 ARCH = register(ArchDef(

@@ -22,10 +22,10 @@ def make_config(smoke: bool = False) -> TransformerConfig:
         dtype="bfloat16", remat=True)
 
 
-def _make_step(cfg, shape, device=None):
+def _make_step(cfg, shape, device=None, mesh=None):
     from repro_torch.launch.steps import lm_step_bundle
 
-    return lm_step_bundle(cfg, shape, device)
+    return lm_step_bundle(cfg, shape, device, mesh=mesh)
 
 
 ARCH = register(ArchDef(
@@ -34,5 +34,6 @@ ARCH = register(ArchDef(
     shapes=lm_shapes(),
     make_config=make_config,
     make_step=_make_step,
-    notes="GQA with kv=10; on one device no model axis has to divide it.",
+    notes="GQA with kv=10: on a 16-way `model` axis the KV heads are "
+          "all-gathered and each rank reads the ones its query heads use.",
 ))

@@ -85,16 +85,33 @@ def batch_specs(engine: str, q: int, d: int, j: int):
     raise ValueError(f"unknown engine {engine!r} (expected one of {ENGINES})")
 
 
-def _make_step(cfg: EvalConfig, shape: ShapeSpec,
-               device=None) -> StepBundle:
+def _mesh_group(mesh):
+    """The process group of every rank of ``mesh`` (it must span the
+    default group)."""
+    import torch.distributed as dist
+
+    if mesh.size() != dist.get_world_size():
+        raise ValueError(f"the eval step's mesh of {mesh.size()} ranks must "
+                         f"span the default group's {dist.get_world_size()}")
+    return dist.group.WORLD
+
+
+def _make_step(cfg: EvalConfig, shape: ShapeSpec, device=None,
+               mesh=None) -> StepBundle:
     """The evaluation step at ``shape`` on ``device`` (default CUDA; raises
     without it): batch in, ``{measure key: corpus mean}`` out (0-d
-    tensors on the device)."""
+    tensors on the device, the same on every rank of ``mesh``)."""
     from repro_torch.core import ranked as RK
 
     dev = resolve_device(device)
-    specs = batch_specs(cfg.engine, shape.get("n_queries"),
-                        shape.get("n_docs"), shape.get("n_judged"))
+    q = shape.get("n_queries")
+    if mesh is not None:
+        m = mesh.size()
+        q = -(-q // m) * m  # pad the query axis to a mesh multiple
+    specs = batch_specs(cfg.engine, q, shape.get("n_docs"),
+                        shape.get("n_judged"))
+    if mesh is not None:
+        return StepBundle(_mesh_step(cfg, mesh), (specs,), dev, mesh=mesh)
     if cfg.engine == "ranked":
         @torch.inference_mode()
         def eval_step(batch: RK.RankedBatch):
@@ -108,6 +125,34 @@ def _make_step(cfg: EvalConfig, shape: ShapeSpec,
             return M.aggregate(per_q, batch.query_mask)
 
     return StepBundle(eval_step, (specs,), dev)
+
+
+def _mesh_step(cfg: EvalConfig, mesh):
+    from repro_torch.core import ranked as RK
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import spmd
+
+    qaxes = tuple(mesh.mesh_dim_names)  # queries over EVERY axis
+
+    @torch.inference_mode()
+    def eval_step(batch):
+        local = type(batch)(*(SH.local_input(t, (qaxes,), mesh)
+                              for t in batch))
+        if cfg.engine != "ranked":
+            return collectives.sharded_evaluate(
+                local, MEASURES, _mesh_group(mesh), cfg.relevance_level)
+        per_q = RK.compute_measures_ranked(local, _PARSED,
+                                           cfg.relevance_level)
+        keys = sorted(per_q)
+        qm = local.query_mask.to(torch.float32)
+        sums = torch.stack([torch.sum(per_q[k] * qm) for k in keys]
+                           + [torch.sum(qm)])
+        sums = spmd.psum(sums, mesh, qaxes)
+        count = torch.clamp(sums[-1], min=1.0)
+        return {k: sums[i] / count for i, k in enumerate(keys)}
+
+    return eval_step
 
 
 ARCH = register(ArchDef(

@@ -27,10 +27,11 @@ def make_config(smoke: bool = False) -> TransformerConfig:
         dtype="bfloat16", remat=True)
 
 
-def _make_step(cfg, shape, device=None):
+def _make_step(cfg, shape, device=None, mesh=None):
     from repro_torch.launch.steps import lm_step_bundle
 
-    return lm_step_bundle(cfg, shape, device, opt_memory_efficient=True)
+    return lm_step_bundle(cfg, shape, device, opt_memory_efficient=True,
+                          mesh=mesh, fsdp=True)
 
 
 ARCH = register(ArchDef(
@@ -39,5 +40,6 @@ ARCH = register(ArchDef(
     shapes=lm_shapes(),
     make_config=make_config,
     make_step=_make_step,
-    notes="MoE, 128 experts top-8, every expert on the one device.",
+    notes="MoE, 128 experts top-8; on a mesh expert-parallel over "
+          "`model`, the expert FFN split over `data` (FSDP).",
 ))

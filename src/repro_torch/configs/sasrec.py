@@ -19,10 +19,10 @@ def make_config(smoke: bool = False) -> SASRecConfig:
                         n_blocks=2, n_heads=1, seq_len=50)
 
 
-def _make_step(cfg, shape, device=None):
+def _make_step(cfg, shape, device=None, mesh=None):
     from repro_torch.launch.steps import recsys_step_bundle
 
-    return recsys_step_bundle("sasrec", cfg, shape, device)
+    return recsys_step_bundle("sasrec", cfg, shape, device, mesh)
 
 
 ARCH = register(ArchDef(

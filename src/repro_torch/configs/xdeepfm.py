@@ -27,10 +27,10 @@ def make_config(smoke: bool = False) -> CTRConfig:
         multi_hot_len=8)
 
 
-def _make_step(cfg, shape, device=None):
+def _make_step(cfg, shape, device=None, mesh=None):
     from repro_torch.launch.steps import recsys_step_bundle
 
-    return recsys_step_bundle("xdeepfm", cfg, shape, device)
+    return recsys_step_bundle("xdeepfm", cfg, shape, device, mesh)
 
 
 ARCH = register(ArchDef(

@@ -42,6 +42,7 @@ import torch.distributed as dist
 
 from repro_torch.core import measures as M
 from repro_torch.core import streaming
+from repro_torch.distributed import spmd
 from repro_torch.train import compression as C
 
 METHODS = ("none", "bf16", "int8")
@@ -168,6 +169,9 @@ def sharded_evaluate(batch: M.EvalBatch, measures: Tuple[str, ...],
                                   device=batch.query_mask.device)
     state = streaming.metric_update(state, batch, tuple(measures),
                                     relevance_level)
+    # metric_finalize's one all_reduce of the stacked [sums..., count]
+    spmd.record("all-reduce", sum(v.numel() * v.element_size()
+                                  for v in state.values()))
     return streaming.metric_finalize(
         state, group if group is not None else dist.group.WORLD)
 

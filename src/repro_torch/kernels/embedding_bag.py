@@ -18,7 +18,11 @@ and has two entry points:
 Each launches the kernel for a CUDA tensor and uses its plain version
 (:func:`embedding_bag_fixed_plain`, :func:`embedding_bag_plain`) only for
 a CPU tensor.  ``LAUNCHES`` counts the kernel launches of both, as their
-C entry points report them.
+C entry points report them.  :func:`embedding_bag_fixed` calls the
+``torch.library`` op ``repro_torch::embedding_bag_fixed``, which
+PyTorch's dispatcher sends by the tensors' device: the kernel, the plain
+version, or for ``meta`` tensors an empty output of the right shape (a
+dispatch mode sees the call as one op: the dry run counts its bytes).
 
 Training differentiates the fixed-length entry through
 :func:`embedding_bag_fixed_grad`, a ``torch.autograd.Function`` whose
@@ -213,20 +217,23 @@ def embedding_bag_fixed(table: torch.Tensor, ids: torch.Tensor,
     tensors = [table, ids] + ([] if mask is None else [mask])
     if any(t.device != table.device for t in tensors):
         raise ValueError("table, ids and mask must lie on one device")
-    if table.device.type == "cpu":
-        if ids.is_floating_point():
-            raise ValueError("ids must be an integer tensor")
-        rows = ids.long()
-        if field_rows and ids.numel():
-            rows = rows + _field_rows(ids.shape[0], fields, field_rows,
-                                      ids.device)
-        if ids.numel() and bool(((rows < 0)
-                                 | (rows >= table.shape[0])).any()):
-            raise ValueError(f"a row is outside [0, {table.shape[0]})")
-        return embedding_bag_fixed_plain(table, ids, mask, fields,
-                                         field_rows)
-    if table.device.type != "cuda":
-        raise ValueError(f"unsupported device {table.device}")
+    return torch.ops.repro_torch.embedding_bag_fixed(
+        table, ids, mask, int(fields), int(field_rows))
+
+
+def _fixed_cpu(table, ids, mask, fields, field_rows):
+    if ids.is_floating_point():
+        raise ValueError("ids must be an integer tensor")
+    rows = ids.long()
+    if field_rows and ids.numel():
+        rows = rows + _field_rows(ids.shape[0], fields, field_rows,
+                                  ids.device)
+    if ids.numel() and bool(((rows < 0) | (rows >= table.shape[0])).any()):
+        raise ValueError(f"a row is outside [0, {table.shape[0]})")
+    return embedding_bag_fixed_plain(table, ids, mask, fields, field_rows)
+
+
+def _fixed_cuda(table, ids, mask, fields, field_rows):
     if table.dtype != torch.float32 or not table.is_contiguous():
         raise ValueError("table must be a contiguous float32 tensor")
     if ids.dtype != torch.int32 or not ids.is_contiguous():
@@ -255,6 +262,19 @@ def embedding_bag_fixed(table: torch.Tensor, ids: torch.Tensor,
     global LAUNCHES
     LAUNCHES += launched.value
     return out
+
+
+def _fixed_meta(table, ids, mask, fields, field_rows):
+    return table.new_empty((ids.shape[0], table.shape[1]),
+                           dtype=torch.float32)
+
+
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("embedding_bag_fixed(Tensor table, Tensor ids, Tensor? mask, "
+            "int fields, int field_rows) -> Tensor")
+_LIB.impl("embedding_bag_fixed", _fixed_cpu, "CPU")
+_LIB.impl("embedding_bag_fixed", _fixed_cuda, "CUDA")
+_LIB.impl("embedding_bag_fixed", _fixed_meta, "Meta")
 
 
 def _fixed_rows(ids, fields: int, field_rows: int) -> torch.Tensor:

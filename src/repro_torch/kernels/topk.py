@@ -16,8 +16,11 @@ route does; the JAX Pallas kernel has no order for NaN.  Rows shorter
 than k come back padded with -inf and out-of-range indices (>= D), as from
 the Pallas kernel.
 
-:func:`topk` launches the kernel for a CUDA tensor and uses
-:func:`topk_plain` only for a CPU tensor.
+:func:`topk` calls the ``torch.library`` op ``repro_torch::topk``, which
+PyTorch's dispatcher sends by the tensor's device: the kernel for a CUDA
+tensor, :func:`topk_plain` for a CPU tensor, and for a ``meta`` tensor
+empty outputs of the right shapes (a dispatch mode sees the call as one
+op: the dry run counts its bytes).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import Tuple
 
 import torch
 
@@ -101,7 +105,7 @@ def _lib():
     return fn
 
 
-def topk(scores: torch.Tensor, k: int):
+def topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k (values ``[Q, k]`` f32, indices ``[Q, k]`` i32) of each row.
 
     A CUDA tensor goes through the kernel (one call: one launch, or two
@@ -111,10 +115,10 @@ def topk(scores: torch.Tensor, k: int):
         raise ValueError(f"scores must be [Q, D], got {tuple(scores.shape)}")
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
-    if scores.device.type == "cpu":
-        return topk_plain(scores, k)
-    if scores.device.type != "cuda":
-        raise ValueError(f"unsupported device {scores.device}")
+    return torch.ops.repro_torch.topk(scores, int(k))
+
+
+def _topk_cuda(scores: torch.Tensor, k: int):
     if scores.dtype != torch.float32 or not scores.is_contiguous():
         raise ValueError("scores must be a contiguous float32 tensor")
     q, d = scores.shape
@@ -145,3 +149,16 @@ def topk(scores: torch.Tensor, k: int):
     LAUNCHES += 1
     KERNEL_LAUNCHES += launched.value
     return out_v, out_i
+
+
+def _topk_meta(scores: torch.Tensor, k: int):
+    q = scores.shape[0]
+    return (scores.new_empty((q, k), dtype=torch.float32),
+            scores.new_empty((q, k), dtype=torch.int32))
+
+
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("topk(Tensor scores, int k) -> (Tensor, Tensor)")
+_LIB.impl("topk", topk_plain, "CPU")
+_LIB.impl("topk", _topk_cuda, "CUDA")
+_LIB.impl("topk", _topk_meta, "Meta")

@@ -3,10 +3,11 @@
 The counterpart of ``repro.launch.api``.  Each ``configs/<id>.py`` exposes
 ``ARCH: ArchDef``.  An ArchDef knows how to build its full (paper-exact)
 and smoke (reduced) model configs, and how to build the step function of
-each of its shapes on one device.  Every arch of the JAX package is
-registered: the five LMs (family ``lm``), the four recsys archs, GatedGCN
-(family ``gnn``) and the paper's own evaluator (``pytrec-eval``, family
-``eval``).
+each of its shapes on one device, or sharded over a ``DeviceMesh``
+(``launch.mesh``; the serving kinds, see ``launch.steps``).  Every arch
+of the JAX package is registered: the five LMs (family ``lm``), the four
+recsys archs, GatedGCN (family ``gnn``) and the paper's own evaluator
+(``pytrec-eval``, family ``eval``).
 """
 
 from __future__ import annotations
@@ -56,6 +57,8 @@ class StepBundle:
     #: ``train`` kinds: ``init_opt(params) → OptState`` (the optimizer's
     #: zero state on the parameters' device), the step's second argument
     init_opt: Optional[Callable] = None
+    #: the ``DeviceMesh`` the step is sharded over (None: one device)
+    mesh: Optional[Any] = None
 
 
 @dataclasses.dataclass
@@ -64,7 +67,7 @@ class ArchDef:
     family: str  # lm | recsys | gnn | eval
     shapes: Dict[str, ShapeSpec]
     make_config: Callable[[bool], Any]  # (smoke: bool) -> model config
-    # (cfg, shape, device=None) -> StepBundle; None → CUDA
+    # (cfg, shape, device=None, mesh=None) -> StepBundle; None → CUDA
     make_step: Callable[..., StepBundle]
     notes: str = ""
 

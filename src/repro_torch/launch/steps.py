@@ -1,7 +1,7 @@
 """Family step builders: LM train / prefill / decode, recsys train /
 serve / retrieval and GNN train.
 
-The counterpart of ``repro.launch.steps`` on one device.  As in the JAX
+The counterpart of ``repro.launch.steps``.  As in the JAX
 package, ranking metrics are computed inside the step from the scores
 already on the device (the port's ``core.measures`` for slates,
 ``core.sorting.gold_rank`` and ``core.streaming.rank_metrics`` in the GNN
@@ -21,6 +21,24 @@ gives the optimizer's first state.  The LM ``prefill`` and ``decode``
 steps run under ``torch.inference_mode``; ``decode`` writes the KV cache
 it is given in place (JAX's step donates it) and takes ``pos`` as a
 Python int.
+
+With a ``mesh`` (a ``DeviceMesh`` with JAX's axis names, see
+``launch.mesh``) the serving steps run model-parallel, every rank
+calling the step with the same full inputs (or DTensors) and taking its
+own block by JAX's ``in_shardings``: LM ``prefill`` and ``decode``
+(``models.transformer``'s TP / EP path; the model may be passed as it is
+or already laid out by ``transformer.shard_params``), recsys ``serve``
+(``serve_p99`` and ``serve_bulk``: the batch over the data axes, the
+tables row-sharded over ``model``, each rank's lookups through B3 on its
+block) and ``retrieval`` (the candidates split over ``model``: each rank
+scores its block and takes its top-k with B2, and a second B2 over the
+gathered ``m·k`` (value, index) pairs merges them, ties to the lower
+index and NaN last as one top-k over all of them).  Sharded outputs come
+back as DTensors laid out as JAX's ``out_shardings``; metrics are the
+same on every rank.  A ``train`` kind with a mesh raises
+``NotImplementedError``: model-parallel training (FSDP ``gather`` mode in
+the step, the optimizer state's specs, the GNN's edge sharding) is the
+next slice's.
 """
 
 from __future__ import annotations
@@ -33,6 +51,8 @@ import torch
 from repro_torch.core import measures as M
 from repro_torch.core import sorting, streaming
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as SH
+from repro_torch.distributed import spmd
 from repro_torch.kernels import ops
 from repro_torch.launch.api import ShapeSpec, StepBundle, TensorSpec
 from repro_torch.models import gnn as gnn_lib
@@ -62,9 +82,20 @@ def _slate_metrics(scores, rel) -> Dict[str, torch.Tensor]:
     return {k: agg[k] for k in ("ndcg_cut_10", "recip_rank", "success_10")}
 
 
+TRAIN_WITH_MESH = ("model-parallel training (FSDP gather mode in the "
+                   "train step, the optimizer state's partition specs, the "
+                   "GNN's edge sharding) is the next slice of the port; "
+                   "this one shards serving only")
+
+
+def _no_mesh_train(mesh):
+    if mesh is not None:
+        raise NotImplementedError(TRAIN_WITH_MESH)
+
+
 def _slate_scores(kind, cfg, params, batch, cand):
     """Scores of per-user candidate slates ``[B, S_cand]``."""
-    ce = params.item_emb[cand.long()]  # [B, S, D]
+    ce = rec_lib.rows_of(params.item_emb, cand)  # [B, S, D]
     if kind == "sasrec":
         h = rec_lib.sasrec_last_state(params, batch["items"], cfg)
         return torch.einsum("bd,bsd->bs", h, ce)
@@ -127,16 +158,66 @@ def _input_specs(kind: str, cfg, b: int) -> Dict[str, TensorSpec]:
     return out
 
 
-def recsys_step_bundle(kind: str, cfg, shape: ShapeSpec,
-                       device=None) -> StepBundle:
-    """The ``serve`` or ``retrieval`` step of ``kind`` at ``shape``, on
-    ``device`` (default CUDA; raises without it)."""
+def _recsys_sharding(mesh):
+    if mesh is None:
+        return None
+    from repro_torch.launch.mesh import data_axes_of
+
+    return SH.RecSysSharding(data_axes=data_axes_of(mesh))
+
+
+def _batch_block(batch, mesh, shd):
+    """Each input's block of this rank's data shard (JAX's ``P(batch,
+    ...)`` in_specs)."""
+    return {k: SH.local_input(v, (shd.batch,), mesh) for k, v in
+            batch.items()}
+
+
+def sharded_topk(scores, k: int, first: int, mesh, axis: str):
+    """Top-k (values, global indices) of the rows of ``scores`` ``[B, N]``
+    whose columns are split over ``axis`` (this rank's block starts at
+    column ``first``): B2 on the block, then B2 over the ``m·k`` (value,
+    index) pairs gathered in rank order, so ties go to the lower index
+    and NaN last, as in one top-k of the whole row.  Needs k <= the
+    block's width."""
+    if k > scores.shape[1]:
+        raise ValueError(f"top-{k} of a block of {scores.shape[1]} "
+                         f"columns: the block must hold k")
+    v, i = ops.topk(scores.contiguous(), k)
+    if spmd.axis_size(mesh, axis) == 1:
+        return v, i
+    return merge_topk(spmd.all_gather(v, 1, mesh, axis),
+                      spmd.all_gather((i + first).contiguous(), 1, mesh,
+                                      axis), k)
+
+
+def merge_topk(values, indices, k: int):
+    """The top k of the blocks' top-k (value, global index) pairs laid
+    side by side in block order ``[B, m·k]``: one B2 call over the
+    values, its positions mapped to the indices."""
+    mv, j = ops.topk(values.contiguous(), k)
+    return mv, torch.gather(indices, 1, j.long())
+
+
+def recsys_step_bundle(kind: str, cfg, shape: ShapeSpec, device=None,
+                       mesh=None) -> StepBundle:
+    """The ``train``, ``serve`` or ``retrieval`` step of ``kind`` at
+    ``shape``, on ``device`` (default CUDA; raises without it), sharded
+    over ``mesh`` when given (serving kinds only)."""
     if kind not in MODELS:
         raise ValueError(f"unknown recsys arch {kind!r}")
     dev = resolve_device(device)
     params = param_specs(kind, cfg)
+    shd = _recsys_sharding(mesh)
+
+    def view(model, blocks=False):
+        """The model as a sharded step reads it: its tables
+        vocab-parallel on the mesh."""
+        return rec_lib.shard_tables(model, kind, mesh, shd.model_axis,
+                                    blocks)
 
     if shape.kind == "train":
+        _no_mesh_train(mesh)
         b = shape.get("batch")
         init_opt, update = opt_lib.adamw(opt_lib.OptimizerConfig(lr=1e-3))
 
@@ -159,32 +240,60 @@ def recsys_step_bundle(kind: str, cfg, shape: ShapeSpec,
             # online ranking: score a per-user candidate slate + in-loop eval
             @torch.inference_mode()
             def serve(params, batch, cand, rel):
-                scores = _slate_scores(kind, cfg, params, batch, cand)
-                return scores, _slate_metrics(scores, rel)
+                if mesh is None:
+                    scores = _slate_scores(kind, cfg, params, batch, cand)
+                    return scores, _slate_metrics(scores, rel)
+                scores = _slate_scores(
+                    kind, cfg, view(params), _batch_block(batch, mesh, shd),
+                    SH.local_input(cand, (shd.batch, None), mesh))
+                every = spmd.all_gather(scores, 0, mesh, shd.data_axes)
+                return (SH.from_local(scores, (shd.batch, None), mesh,
+                                      (cand.shape[0], slate)),
+                        _slate_metrics(every, SH.full_tensor(rel)))
 
             return StepBundle(serve, (params, inputs,
                                       TensorSpec((b, slate), I32),
-                                      TensorSpec((b, slate), I32)), dev)
+                                      TensorSpec((b, slate), I32)), dev,
+                              mesh=mesh)
 
-        @torch.inference_mode()
-        def serve(params, batch):
+        def scores_of(params, batch):
             if kind == "sasrec":
                 h = rec_lib.sasrec_last_state(params, batch["items"], cfg)
-                cand = params.item_emb[batch["pos"][:, -1].long()]
+                cand = rec_lib.rows_of(params.item_emb, batch["pos"][:, -1])
                 return torch.sum(h * cand, -1)
             if kind == "mind":
                 caps = rec_lib.mind_interests(params, batch, cfg)
-                cand = params.item_emb[batch["pos"].long()]
+                cand = rec_lib.rows_of(params.item_emb, batch["pos"])
                 return torch.max(torch.einsum("bkd,bd->bk", caps, cand),
                                  dim=-1).values
             return _CTR_SCORE[kind](params, batch, cfg)
 
-        return StepBundle(serve, (params, inputs), dev)
+        @torch.inference_mode()
+        def serve(params, batch):
+            if mesh is None:
+                return scores_of(params, batch)
+            n = next(iter(batch.values())).shape[0]
+            scores = scores_of(view(params), _batch_block(batch, mesh, shd))
+            return SH.from_local(scores, (shd.batch,), mesh, (n,))
+
+        return StepBundle(serve, (params, inputs), dev, mesh=mesh)
 
     if shape.kind == "retrieval":
         b = shape.get("batch")
         nc = shape.get("n_candidates")
         topk = shape.get("topk", 1000)
+        # batch = 1: the user's inputs stay replicated; the candidates are
+        # split over `model` (JAX's in_specs)
+
+        def block(cand_ids):
+            first = SH.local_bounds(cand_ids.shape, (shd.model_axis,),
+                                    mesh)[0][0]
+            return SH.local_input(cand_ids, (shd.model_axis,), mesh), first
+
+        def rank(scores, first, rel):
+            v, i = sharded_topk(scores, topk, first, mesh, shd.model_axis)
+            every = spmd.all_gather(scores, 1, mesh, shd.model_axis)
+            return v, i, _slate_metrics(every, SH.full_tensor(rel))
 
         if kind in ("sasrec", "mind"):
             retrieval = (rec_lib.sasrec_retrieval_scores if kind == "sasrec"
@@ -192,29 +301,45 @@ def recsys_step_bundle(kind: str, cfg, shape: ShapeSpec,
 
             @torch.inference_mode()
             def serve(params, batch, cand_ids, rel):
-                scores = retrieval(params, {**batch, "candidates": cand_ids},
-                                   cfg)
-                v, i = ops.topk(scores.contiguous(), topk)
-                return v, i, _slate_metrics(scores, rel)
+                if mesh is None:
+                    scores = retrieval(params, {**batch,
+                                                "candidates": cand_ids}, cfg)
+                    v, i = ops.topk(scores.contiguous(), topk)
+                    return v, i, _slate_metrics(scores, rel)
+                p = view(params)
+                ids, first = block(cand_ids)
+                rows = p.item_emb.lookup_blocks(ids[:, None])
+                scores = retrieval(p, {**batch, "candidate_rows": rows}, cfg)
+                return rank(scores, first, rel)
 
             arg_specs = (params, _input_specs(kind, cfg, b),
                          TensorSpec((nc,), I32), TensorSpec((b, nc), I32))
         else:
             # CTR: broadcast user fields over the candidate set (field 0 is
             # the item id field)
+            def score_ids(params, user_ids, cand_ids):
+                ids = user_ids.expand(cand_ids.shape[0],
+                                      cfg.table.n_fields).clone()
+                ids[:, 0] = cand_ids
+                return _CTR_SCORE[kind](params, {"ids": ids}, cfg)[None, :]
+
             @torch.inference_mode()
             def serve(params, batch, cand_ids, rel):
-                nfields = cfg.table.n_fields
-                ids = batch["ids"].expand(nc, nfields).clone()
-                ids[:, 0] = cand_ids
-                scores = _CTR_SCORE[kind](params, {"ids": ids}, cfg)[None, :]
-                v, i = ops.topk(scores.contiguous(), topk)
-                return v, i, _slate_metrics(scores, rel)
+                if mesh is None:
+                    scores = score_ids(params, batch["ids"], cand_ids)
+                    v, i = ops.topk(scores.contiguous(), topk)
+                    return v, i, _slate_metrics(scores, rel)
+                ids, first = block(cand_ids)
+                # each rank's candidates differ: the lookups gather the
+                # ids over `model` and reduce-scatter the rows back
+                scores = score_ids(view(params, blocks=True), batch["ids"],
+                                   ids)
+                return rank(scores, first, rel)
 
             arg_specs = (params,
                          {"ids": TensorSpec((1, cfg.table.n_fields), I32)},
                          TensorSpec((nc,), I32), TensorSpec((1, nc), I32))
-        return StepBundle(serve, arg_specs, dev)
+        return StepBundle(serve, arg_specs, dev, mesh=mesh)
 
     raise ValueError(f"unsupported recsys shape kind {shape.kind}")
 
@@ -225,10 +350,12 @@ def recsys_step_bundle(kind: str, cfg, shape: ShapeSpec,
 
 
 def lm_step_bundle(cfg: tfm.TransformerConfig, shape: ShapeSpec,
-                   device=None, opt_memory_efficient: bool = False
-                   ) -> StepBundle:
+                   device=None, opt_memory_efficient: bool = False,
+                   mesh=None, fsdp: bool = False) -> StepBundle:
     """The LM step of ``shape.kind`` on ``device`` (default CUDA; raises
-    without it).
+    without it), sharded over ``mesh`` when given (``fsdp``: expert
+    weights also split over the last data axis; decode gathers the
+    tokens instead of the weights, JAX's ``activation`` mode).
 
     * ``train``: ``step_fn(model, opt_state, {"tokens", "labels"})`` →
       (model, opt_state, metrics): cross-entropy, JAX's LM AdamW (lr
@@ -241,12 +368,32 @@ def lm_step_bundle(cfg: tfm.TransformerConfig, shape: ShapeSpec,
       the prompt's length; JAX's bundle always gives the prompt's).
     * ``decode``: ``step_fn(model, cache, token, pos, gold)`` → (logits,
       cache written in place, rank metrics of ``gold``).
+
+    With a mesh ``model`` may be a ``Transformer`` (laid out on each
+    call) or ``transformer.shard_params``'s result; the logits and the
+    cache are DTensors and the gold rank comes from the vocab-sharded
+    logits (``transformer.gold_rank_sharded``).
     """
     dev = resolve_device(device)
     params = _module_specs(tfm.Transformer(cfg, device="meta"))
     b, s = shape.get("global_batch"), shape.get("seq_len")
+    shd = None
+    if mesh is not None:
+        from repro_torch.launch.mesh import data_axes_of
+
+        # decode gathers activations, not weight shards (JAX's choice)
+        shd = SH.LMSharding(
+            data_axes=data_axes_of(mesh), fsdp_experts=fsdp,
+            moe_fsdp_mode="activation" if shape.kind == "decode"
+            else "gather")
+
+    def laid_out(model):
+        if mesh is None or isinstance(model, tfm.ShardedTransformer):
+            return model
+        return tfm.shard_params(model, mesh, shd)
 
     if shape.kind == "train":
+        _no_mesh_train(mesh)
         ocfg = opt_lib.OptimizerConfig(lr=3e-4, warmup_steps=50,
                                        decay_steps=20_000)
         if opt_memory_efficient:
@@ -277,25 +424,28 @@ def lm_step_bundle(cfg: tfm.TransformerConfig, shape: ShapeSpec,
     if shape.kind == "prefill":
         @torch.inference_mode()
         def prefill_step(params, tokens, max_seq=None):
-            return tfm.prefill(params, tokens, cfg, max_seq=max_seq)
+            return tfm.prefill(laid_out(params), tokens, cfg,
+                               max_seq=max_seq, mesh=mesh, shd=shd)
 
         return StepBundle(prefill_step, (params, TensorSpec((b, s), I32)),
-                          dev)
+                          dev, mesh=mesh)
 
     if shape.kind == "decode":
         kv = (cfg.n_layers, b, cfg.n_kv_heads, s, cfg.head_dim)
 
         @torch.inference_mode()
         def decode(params, cache, token, pos, gold):
-            logits, cache = tfm.decode_step(params, cache, token, pos, cfg)
-            ranks = sorting.gold_rank(logits, gold)
+            logits, cache = tfm.decode_step(laid_out(params), cache, token,
+                                            pos, cfg, mesh, shd)
+            ranks = (sorting.gold_rank(logits, gold) if mesh is None else
+                     tfm.gold_rank_sharded(logits, gold, mesh, shd))
             return logits, cache, streaming.rank_metrics(ranks)
 
         cache = {"k": TensorSpec(kv, cfg.torch_dtype),
                  "v": TensorSpec(kv, cfg.torch_dtype)}
         return StepBundle(decode, (params, cache, TensorSpec((b,), I32),
                                    TensorSpec((), I32),
-                                   TensorSpec((b,), I32)), dev)
+                                   TensorSpec((b,), I32)), dev, mesh=mesh)
 
     raise ValueError(f"unsupported LM shape kind {shape.kind}")
 
@@ -320,7 +470,7 @@ def _gnn_input_specs(cfg: gnn_lib.GatedGCNConfig, shape: ShapeSpec):
 
 
 def gnn_step_bundle(cfg: gnn_lib.GatedGCNConfig, shape: ShapeSpec,
-                    device=None) -> StepBundle:
+                    device=None, mesh=None) -> StepBundle:
     """GatedGCN's ``train`` step at ``shape`` on ``device`` (default CUDA;
     raises without it): the node task (cross-entropy over the masked
     nodes; a batch may carry a ``train_mask``) or the graph task (logits
@@ -328,6 +478,7 @@ def gnn_step_bundle(cfg: gnn_lib.GatedGCNConfig, shape: ShapeSpec,
     (``sorting.gold_rank``) and ``streaming.rank_metrics`` in the step."""
     if shape.kind != "train":
         raise ValueError(f"unsupported GNN shape kind {shape.kind}")
+    _no_mesh_train(mesh)
     dev = resolve_device(device)
     graph_task = shape.get("graph_task", False)
     params = _module_specs(gnn_lib.GatedGCN(cfg, device="meta"))

@@ -8,6 +8,18 @@ kernel with ``use_kernel``, the port chooses by device through
 :func:`repro_torch.kernels.ops.embedding_bag_fixed` (bags of a fixed
 length, as multi-hot fields are): a CUDA table launches the hand-written
 kernel, a CPU table runs its plain version.
+
+Vocab-parallel tables.  On a mesh a table is row-sharded over ``model``
+(``RecSysSharding.p_table``): :class:`VocabParallel` holds a rank's block
+of rows.  A lookup is JAX's "local gather + masked psum" (which GSPMD
+forms for ``jnp.take`` on such a table): each rank launches B3
+(``ops.embedding_bag_fixed``) on its own block, with the ids shifted by
+the block's first row and a zero weight for every row it does not hold,
+then the partial sums are summed over ``model``.  :func:`field_lookup`
+and :func:`multi_hot_lookup_all` take such a table in place of a tensor;
+``mean`` divides by the whole bag's count after the sum.  A zero weight
+times a non-finite row is NaN, so a lookup a rank does not hold reads a
+row of its bag that the rank does hold (see :meth:`VocabParallel.partial`).
 """
 
 from __future__ import annotations
@@ -17,6 +29,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed import sharding as SH
+from repro_torch.distributed import spmd
 from repro_torch.kernels import ops
 from repro_torch.models.layers import normal
 
@@ -32,6 +46,70 @@ class TableConfig:
         return self.n_fields * self.vocab_per_field
 
 
+class VocabParallel:
+    """Rows ``[row0, row0 + V_loc)`` of a ``[V, E]`` float32 table split
+    over ``axis`` of ``mesh`` (torch.chunk's rule), as this rank's block
+    ``local``.  With ``blocks`` each rank's lookups are its own block of
+    a list split evenly over ``axis`` (a candidate set) instead of the
+    same on every rank: :meth:`lookup` then all-gathers them, takes every
+    rank's partial rows and reduce-scatters the sums back."""
+
+    def __init__(self, table: torch.Tensor, mesh, axis: str = "model",
+                 blocks: bool = False):
+        self.blocks = blocks
+        spec = (axis, None)
+        self.rows = table.shape[0]
+        self.dim = table.shape[1]
+        self.row0 = SH.local_bounds(table.shape, spec, mesh)[0][0]
+        self.local = SH.local_input(table, spec, mesh).detach()
+        self.mesh, self.axis = mesh, axis
+
+    @property
+    def dtype(self):
+        return self.local.dtype
+
+    @property
+    def device(self):
+        return self.local.device
+
+    def partial(self, rows: torch.Tensor, mask=None) -> torch.Tensor:
+        """This rank's share of the bags ``rows [N, m]`` (global rows,
+        bool ``mask`` or all 1): B3 on the rows it holds, 0 elsewhere.
+        A lookup it does not hold reads the bag's first held row with
+        weight 0, so a non-finite row of the block reaches only the bags
+        that hold it; a bag with none is set to 0 after the kernel."""
+        n_loc = self.local.shape[0]
+        hit = (rows >= self.row0) & (rows < self.row0 + n_loc)
+        if mask is not None:
+            hit &= mask
+        local = rows - self.row0
+        held = hit.any(-1, keepdim=True)
+        first = torch.gather(local, -1, hit.to(torch.uint8).argmax(
+            -1, keepdim=True))
+        fill = torch.where(held, first, torch.zeros_like(first))
+        ids = torch.where(hit, local, fill).to(torch.int32)
+        out = ops.embedding_bag_fixed(self.local, ids.contiguous(),
+                                      hit.contiguous())
+        return torch.where(held, out, torch.zeros_like(out))
+
+    def lookup(self, rows: torch.Tensor, mask=None) -> torch.Tensor:
+        """Bag sums ``[N, E]`` of ``rows [N, m]``: the partial sums summed
+        over ``axis`` (with ``blocks``: :meth:`lookup_blocks`)."""
+        if self.blocks:
+            return self.lookup_blocks(rows, mask)
+        return spmd.psum(self.partial(rows, mask), self.mesh, self.axis)
+
+    def lookup_blocks(self, rows: torch.Tensor, mask=None) -> torch.Tensor:
+        """Bag sums of ``rows [N_loc, m]``, this rank's block of bags split
+        evenly over ``axis`` (a candidate set): every rank's bags
+        all-gathered, their partial sums, one reduce-scatter back."""
+        every = spmd.all_gather(rows, 0, self.mesh, self.axis)
+        if mask is not None:
+            mask = spmd.all_gather(mask, 0, self.mesh, self.axis)
+        return spmd.psum_scatter(self.partial(every, mask), 0, self.mesh,
+                                 self.axis)
+
+
 def init_table(gen: torch.Generator | None, cfg: TableConfig,
                dtype=torch.float32, scale: float = 0.01,
                device=None) -> torch.Tensor:
@@ -40,10 +118,13 @@ def init_table(gen: torch.Generator | None, cfg: TableConfig,
 
 def field_lookup(table, ids, cfg: TableConfig) -> torch.Tensor:
     """Single-hot lookup: ids ``[B, n_fields]`` per field → ``[B, n_fields,
-    dim]``."""
+    dim]`` (a :class:`VocabParallel` table: one B3 launch a rank)."""
     offsets = torch.arange(cfg.n_fields, dtype=ids.dtype,
                            device=ids.device) * cfg.vocab_per_field
     rows = ids + offsets[None, :]
+    if isinstance(table, VocabParallel):
+        return table.lookup(rows.reshape(-1, 1)).reshape(*rows.shape,
+                                                          table.dim)
     return torch.index_select(table, 0, rows.reshape(-1)).reshape(
         *rows.shape, table.shape[1])
 
@@ -94,6 +175,16 @@ def multi_hot_lookup_all(table, ids, mask, cfg: TableConfig,
         raise ValueError(f"combiner must be 'sum' or 'mean', got "
                          f"{combiner!r}")
     b, f, m = ids.shape
+    if isinstance(table, VocabParallel):
+        offsets = torch.arange(f, dtype=ids.dtype,
+                               device=ids.device) * cfg.vocab_per_field
+        rows = (ids + offsets[None, :, None]).reshape(b * f, m)
+        out = table.lookup(rows, mask.reshape(b * f, m)).reshape(
+            b, f, table.dim)
+        if combiner == "mean":  # the whole bag's count, after the sum
+            counts = mask.to(out.dtype).sum(-1, keepdim=True)
+            out = out / torch.clamp(counts, min=1.0)
+        return out
     # under autograd a table that trains takes the differentiable entry
     bag = (ops.embedding_bag_fixed_grad
            if torch.is_grad_enabled() and table.requires_grad

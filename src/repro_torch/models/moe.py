@@ -1,4 +1,5 @@
-"""Mixture-of-Experts block on one device: the port of ``repro.models.moe``.
+"""Mixture-of-Experts block: the port of ``repro.models.moe``, on one device
+or expert-parallel over a ``DeviceMesh``.
 
 Top-k routing, capacity dispatch, expert GEMMs.  Each expert takes its top
 ``C = cf · T · k / E`` tokens by router weight (drop-lowest-probability
@@ -14,9 +15,20 @@ slice (``torch.topk`` promises no order among ties).  JAX's
 no fixed order, so a token's expert outputs agree with JAX within a
 tolerance, not bit for bit.
 
-Only the JAX function's ``mesh=None`` branch has a counterpart: its
-shard_map / expert-parallel / FSDP branches (``model_axis``,
-``fsdp_axis``, ``fsdp_mode``) wait for sharded execution across devices.
+With a ``DeviceMesh`` (:func:`moe_apply`'s ``mesh``) the block runs as
+JAX's ``shard_map`` body does, on each rank's local tensors
+(``distributed.spmd``'s collectives): tokens sharded over the data axes
+and replicated over ``model``, experts sharded over ``model`` (EP: rank
+r holds experts ``[r · E_loc, (r + 1) · E_loc)`` and takes their
+capacity top-k from the router weights of its tokens), then one sum over
+``model``.  With ``fsdp_axis`` the expert FFN dimension is also split
+over that data axis: ``"gather"`` all-gathers the weights,
+``"activation"`` all-gathers the tokens over the axis, computes the
+partial FFN with the local F block (SwiGLU is elementwise in F) and
+reduce-scatters the outputs back.  Capacity comes from the tokens a
+rank routes (its data shard's, or the gathered ones in ``activation``
+mode), as in JAX, so with more than one data rank the sharded block is
+JAX's ``moe_apply_local`` on each data shard, not the unsharded block.
 """
 
 from __future__ import annotations
@@ -26,6 +38,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import spmd
 from repro_torch.models.layers import normal_in_dtype
 
 F32 = torch.float32
@@ -70,6 +83,13 @@ def top_k(x: torch.Tensor, k: int):
 def route(x2d: torch.Tensor, router: torch.Tensor, cfg: MoEConfig):
     """Each expert's tokens: (gate values ``[E, C]`` float32, token
     indices ``[E, C]`` int64), from the float32 router on ``x2d [T, D]``."""
+    return route_experts(x2d, router, cfg, 0, cfg.n_experts)
+
+
+def route_experts(x2d: torch.Tensor, router: torch.Tensor, cfg: MoEConfig,
+                  first: int, count: int):
+    """:func:`route` for experts ``[first, first + count)`` only (each
+    expert's capacity top-k is its own)."""
     t = x2d.shape[0]
     probs = torch.softmax(x2d.to(F32) @ router, dim=-1)  # [T, E]
     top_p, top_ids = top_k(probs, cfg.top_k)  # [T, k]
@@ -78,26 +98,54 @@ def route(x2d: torch.Tensor, router: torch.Tensor, cfg: MoEConfig):
     # router weight of each token for each expert, [E, T]: JAX sums a
     # one-hot over k, whose one nonzero term is the weight itself
     w = torch.zeros(probs.shape, dtype=F32, device=x2d.device).scatter(
-        1, top_ids, top_p).T
+        1, top_ids, top_p).T[first:first + count]
     return top_k(w, min(capacity(t, cfg), t))
 
 
-def moe_apply_local(x2d: torch.Tensor, params: dict,
-                    cfg: MoEConfig) -> torch.Tensor:
-    """MoE over flat tokens ``x2d [T, D]``, every expert on this device."""
+def _expert_ffn(x2d, w_gate, w_up, w_down, gate_vals, tok_idx):
     d = x2d.shape[1]
-    w_gate, w_up, w_down = params["w_gate"], params["w_up"], params["w_down"]
-    e = w_gate.shape[0]
-    gate_vals, tok_idx = route(x2d, params["router"], cfg)  # [E, C]
     flat = tok_idx.reshape(-1)
-    xg = x2d[flat].reshape(e, -1, d)
+    xg = x2d[flat].reshape(w_gate.shape[0], -1, d)
     h = F.silu(torch.bmm(xg, w_gate)) * torch.bmm(xg, w_up)
     y = torch.bmm(h, w_down) * gate_vals[..., None].to(x2d.dtype)
     return torch.zeros_like(x2d).index_add(0, flat, y.reshape(-1, d))
 
 
-def moe_apply(x: torch.Tensor, params: dict, cfg: MoEConfig) -> torch.Tensor:
-    """MoE over ``x [..., D]`` (JAX's ``moe_apply`` with ``mesh=None``)."""
+def moe_apply_local(x2d: torch.Tensor, params: dict, cfg: MoEConfig, *,
+                    mesh=None, model_axis=None, fsdp_axis=None,
+                    fsdp_mode: str = "gather") -> torch.Tensor:
+    """MoE over flat tokens ``x2d [T, D]``: every expert on this device
+    (``mesh=None``), or this rank's shard of JAX's ``shard_map`` body,
+    ``params['w_*']`` holding the local experts (leading dim E_loc) and,
+    with ``fsdp_axis``, the local F block; the router is replicated."""
+    w_gate, w_up, w_down = params["w_gate"], params["w_up"], params["w_down"]
+    if mesh is None:
+        gate_vals, tok_idx = route(x2d, params["router"], cfg)  # [E, C]
+        return _expert_ffn(x2d, w_gate, w_up, w_down, gate_vals, tok_idx)
+    activation = fsdp_axis is not None and fsdp_mode == "activation"
+    if fsdp_axis is not None and fsdp_mode == "gather":
+        w_gate = spmd.all_gather(w_gate, 2, mesh, fsdp_axis)
+        w_up = spmd.all_gather(w_up, 2, mesh, fsdp_axis)
+        w_down = spmd.all_gather(w_down, 1, mesh, fsdp_axis)
+    if activation:
+        x2d = spmd.all_gather(x2d, 0, mesh, fsdp_axis)
+    e_loc = w_gate.shape[0]
+    first = spmd.axis_index(mesh, model_axis) * e_loc
+    gate_vals, tok_idx = route_experts(x2d, params["router"], cfg, first,
+                                       e_loc)
+    out = _expert_ffn(x2d, w_gate, w_up, w_down, gate_vals, tok_idx)
+    if activation:
+        # partial over the F blocks: summed and re-sharded in one step
+        out = spmd.psum_scatter(out, 0, mesh, fsdp_axis)
+    return spmd.psum(out, mesh, model_axis)
+
+
+def moe_apply(x: torch.Tensor, params: dict, cfg: MoEConfig, *, mesh=None,
+              model_axis: str = "model", fsdp_axis=None,
+              fsdp_mode: str = "gather") -> torch.Tensor:
+    """MoE over ``x [..., D]``; with a mesh, ``x`` and the expert weights
+    are this rank's local blocks (see the module docstring)."""
     shape = x.shape
-    return moe_apply_local(x.reshape(-1, shape[-1]), params,
-                           cfg).reshape(shape)
+    return moe_apply_local(x.reshape(-1, shape[-1]), params, cfg, mesh=mesh,
+                           model_axis=model_axis, fsdp_axis=fsdp_axis,
+                           fsdp_mode=fsdp_mode).reshape(shape)

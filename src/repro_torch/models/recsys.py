@@ -53,9 +53,13 @@ TRAIN_ROW_FACTOR = 3
 _F32_BYTES = 4
 
 
-def _rows(table, ids):
+def rows_of(table, ids):
     """``table[ids]`` as one ``index_select`` (its backward is an
-    ``index_add_``, which needs no host sync)."""
+    ``index_add_``, which needs no host sync); the vocab-parallel lookup
+    of an ``E.VocabParallel`` table."""
+    if isinstance(table, E.VocabParallel):
+        return table.lookup(ids.reshape(-1, 1)).reshape(*ids.shape,
+                                                        table.dim)
     return torch.index_select(table, 0, ids.reshape(-1).long()).reshape(
         *ids.shape, table.shape[1])
 
@@ -83,6 +87,38 @@ def _by_rows(fn: Callable[[Dict[str, torch.Tensor]], torch.Tensor],
         return fn(batch)
     return torch.cat([fn({k: v[s:s + rows] for k, v in batch.items()})
                       for s in range(0, n, rows)], 0)
+
+
+class TableView:
+    """A recsys model whose embedding tables are :class:`E.VocabParallel`
+    blocks on a mesh (every other parameter is the model's own,
+    replicated); the scoring functions take it in place of the model."""
+
+    def __init__(self, model: nn.Module, tables: Dict[str, object]):
+        self._model = model
+        self.__dict__.update(tables)
+
+    def __getattr__(self, name):
+        return getattr(self.__dict__["_model"], name)
+
+
+#: the tables JAX's recsys steps row-shard over `model`, by arch
+SHARDED_TABLES = {"sasrec": ("item_emb",), "mind": ("item_emb",),
+                  "xdeepfm": ("table", "linear"), "autoint": ("table",)}
+
+
+def shard_tables(model: nn.Module, kind: str, mesh, axis: str = "model",
+                 blocks: bool = False) -> TableView:
+    """``model`` with its tables row-sharded over ``axis`` (each rank
+    keeps a view of its block; nothing is copied).  ``blocks``: each
+    rank's lookups are its own block of a list split over ``axis`` (see
+    ``E.VocabParallel``)."""
+    tables = {}
+    for name in SHARDED_TABLES[kind]:
+        t = getattr(model, name)
+        tables[name] = E.VocabParallel(t[:, None] if t.dim() == 1 else t,
+                                       mesh, axis, blocks)
+    return TableView(model, tables)
 
 
 # ===========================================================================
@@ -138,7 +174,7 @@ def _sasrec_row_bytes(cfg: SASRecConfig) -> int:
 def sasrec_encode(params: SASRec, item_ids, cfg: SASRecConfig):
     """item_ids ``[B, S]`` → sequence representations ``[B, S, D]``
     (causal)."""
-    return _sasrec_blocks(params, _rows(params.item_emb, item_ids), cfg)
+    return _sasrec_blocks(params, rows_of(params.item_emb, item_ids), cfg)
 
 
 def _sasrec_blocks(params: SASRec, x, cfg: SASRecConfig):
@@ -173,17 +209,25 @@ def sasrec_last_state(params: SASRec, item_ids, cfg: SASRecConfig):
                     {"items": item_ids}, _sasrec_row_bytes(cfg))
 
 
+def _candidate_rows(params, batch):
+    """The candidates' item rows: ``batch["candidate_rows"]`` when the
+    caller looked them up (a sharded step), else the rows of
+    ``batch["candidates"]``, else the whole table."""
+    if "candidate_rows" in batch:
+        return batch["candidate_rows"]
+    if "candidates" in batch:
+        return rows_of(params.item_emb, batch["candidates"])
+    return params.item_emb
+
+
 def sasrec_retrieval_scores(params: SASRec, batch, cfg: SASRecConfig):
     """Last-position user state vs candidate item set → ``[B, n_cand]``."""
     h = sasrec_last_state(params, batch["items"], cfg)  # [B, D]
-    cand = params.item_emb
-    if "candidates" in batch:
-        cand = params.item_emb[batch["candidates"].long()]
-    return h @ cand.T
+    return h @ _candidate_rows(params, batch).T
 
 
 def _sasrec_front(params: SASRec, batch, cfg: SASRecConfig):
-    return {k: _rows(params.item_emb, batch[k])
+    return {k: rows_of(params.item_emb, batch[k])
             for k in ("items", "pos", "neg")}
 
 
@@ -341,6 +385,8 @@ def _xdeepfm_linear(params: XDeepFM, ids, cfg: CTRConfig):
     t = cfg.table
     offsets = torch.arange(t.n_fields, dtype=ids.dtype,
                            device=ids.device) * t.vocab_per_field
+    if isinstance(params.linear, E.VocabParallel):  # one bag a row
+        return params.linear.lookup(ids + offsets[None])[:, 0]
     rows = (ids + offsets[None]).reshape(-1)
     return torch.sum(
         torch.index_select(params.linear, 0, rows).reshape(ids.shape), -1)
@@ -427,7 +473,7 @@ class MIND(nn.Module):
 
 
 def _mind_rows(params: MIND, batch, cfg: CTRConfig):
-    return _mind_caps(params, _rows(params.item_emb, batch["hist"]),
+    return _mind_caps(params, rows_of(params.item_emb, batch["hist"]),
                       batch["hist_mask"], cfg)
 
 
@@ -466,7 +512,7 @@ def _mind_row_bytes(cfg: CTRConfig) -> int:
 
 
 def _mind_front(params: MIND, batch, cfg: CTRConfig):
-    return {k: _rows(params.item_emb, batch[k])
+    return {k: rows_of(params.item_emb, batch[k])
             for k in ("hist", "pos", "negs")}
 
 
@@ -502,10 +548,8 @@ def mind_loss(params: MIND, batch, cfg: CTRConfig):
 def mind_retrieval_scores(params: MIND, batch, cfg: CTRConfig):
     """max over interests of ⟨candidate, interest⟩ → ``[B, n_cand]``."""
     caps = mind_interests(params, batch, cfg)
-    cand = params.item_emb
-    if "candidates" in batch:
-        cand = params.item_emb[batch["candidates"].long()]
-    scores = torch.einsum("bkd,nd->bkn", caps, cand)
+    scores = torch.einsum("bkd,nd->bkn", caps,
+                          _candidate_rows(params, batch))
     return torch.max(scores, dim=1).values
 
 

@@ -21,8 +21,10 @@ maps JAX's lists by.
 ``update`` writes the new parameters into the given tensors in place (the
 model's own parameters when a module is passed) and returns a new state;
 it never reads a value back to the host, so a step stays asynchronous.
-``repro.train.optimizer.opt_state_partition_specs`` has no counterpart:
-it returns JAX ``PartitionSpec``s, and the port's state lives on one card.
+``repro.train.optimizer.opt_state_partition_specs`` has no counterpart
+yet: the port shards serving only (``distributed.sharding``), and its
+optimizer state lives on one card until the model-parallel training
+slice.
 """
 
 from __future__ import annotations

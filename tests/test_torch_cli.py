@@ -122,8 +122,10 @@ def test_python_dash_m_repro_torch_runs_without_jax(tmp_path):
     prints its flags, ``--device`` among them, all with ``jax`` blocked
     too; ``repro_torch.serve.cluster`` imports without it.  So do ``python
     -m repro_torch.dev sharded-smoke``, ``python -m
-    repro_torch.analysis.roofline --help`` and ``python -m
-    repro_torch.distributed.collectives`` on a one-rank gloo group."""
+    repro_torch.analysis.roofline --help``, ``python -m
+    repro_torch.distributed.collectives`` on a one-rank gloo group, and
+    ``python -m repro_torch.launch.dryrun --help``; ``distributed.sharding``,
+    ``launch.mesh`` and ``launch.dryrun`` import without it."""
     code = (
         "import runpy, sys\n"
         "sys.modules['jax'] = None\n"
@@ -150,6 +152,8 @@ def test_python_dash_m_repro_torch_runs_without_jax(tmp_path):
         "g = get_arch('gatedgcn')\n"
         "g.make_step(g.make_config(True), g.shapes['molecule'], "
         "device='cpu')\n"
+        "import repro_torch.distributed.sharding, repro_torch.launch.mesh, "
+        "repro_torch.launch.dryrun\n"
         "import repro_torch.models.transformer, repro_torch.models.moe, "
         "repro_torch.train.trainer, repro_torch.train.checkpoint, "
         "repro_torch.data.lm_data\n"
@@ -233,7 +237,11 @@ def test_python_dash_m_repro_torch_runs_without_jax(tmp_path):
              "usage: python -m repro_torch.analysis.roofline"),
             ("repro_torch.distributed.collectives",
              ["--device", "cpu", "--store", str(tmp_path / "store"),
-              "--rank", "0", "--world-size", "1"], '"world_size": 1')):
+              "--rank", "0", "--world-size", "1"], '"world_size": 1'),
+            # the eleventh slice's: the dry run's --help (its import pulls
+            # in the sharding rules and the mesh)
+            ("repro_torch.launch.dryrun", ["--help"],
+             "usage: python -m repro_torch.launch.dryrun")):
         code = _without_jax(module, argv) + (
             "bad = [m for m in sys.modules if m == 'repro' "
             "or m.startswith(('repro.', 'jax.', 'jaxlib'))]\n"

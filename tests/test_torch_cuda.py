@@ -1030,3 +1030,73 @@ def test_trainer_times_each_step_on_the_card(cuda):
     assert trainer.monitor.flags == 1
     assert [s for s in logs if s.startswith("[straggler]")] == [
         s for s in logs if s.startswith("[straggler] step 8 ")]
+
+
+# -- the eleventh slice: B2 and B3 on a shard ----------------------------------
+
+
+class _StubMesh:
+    """Rank ``rank`` of a (1, m) mesh, as the sharding rules read one."""
+
+    mesh_dim_names = ("data", "model")
+
+    def __init__(self, m, rank):
+        self.shape, self.rank = (1, m), rank
+
+    def size(self, dim=None):
+        return self.shape[dim] if dim is not None else self.shape[1]
+
+    def get_local_rank(self, name):
+        return self.rank if name == "model" else 0
+
+
+@pytest.mark.parametrize("blocks", (2, 3))
+def test_b2_merge_of_candidate_blocks_is_one_top_k(cuda, blocks):
+    """Retrieval's candidate split: B2 on each block, then B2 over the
+    gathered (value, index) pairs, bit for bit one B2 call over the row,
+    ties (repeated scores) to the lower index and NaN last."""
+    from repro_torch.launch.steps import merge_topk
+
+    rng = np.random.default_rng(blocks)
+    n, k = 6000, 300
+    x = rng.standard_normal((2, n)).astype(np.float32)
+    x[:, 4000:4100] = x[:, 10:110]  # ties across blocks
+    x[0, rng.choice(n, 5900, replace=False)] = np.nan  # NaN in the top k
+    scores = torch.from_numpy(x).to(cuda)
+    want = TK.topk(scores, k)
+    before = TK.LAUNCHES
+    width = n // blocks
+    vals, idx = [], []
+    for b in range(blocks):
+        v, i = TK.topk(scores[:, b * width:(b + 1) * width].contiguous(), k)
+        vals.append(v)
+        idx.append(i + b * width)
+    got = merge_topk(torch.cat(vals, 1), torch.cat(idx, 1), k)
+    assert TK.LAUNCHES == before + blocks + 1
+    assert torch.equal(got[1], want[1])
+    assert got[0].cpu().numpy().tobytes() == want[0].cpu().numpy().tobytes()
+
+
+@pytest.mark.parametrize("m", (2, 3))
+def test_b3_on_row_shards_sums_to_the_unsharded_lookup(cuda, m):
+    """The vocab-parallel lookup: each shard's B3 launch on its own rows
+    (zero weight elsewhere) and the partial sums added as the sum over
+    ``model`` adds them, within 1e-5 of one B3 call on the whole table;
+    a shard's NaN row reaches no other shard's sums."""
+    rng = np.random.default_rng(m)
+    table = torch.from_numpy(rng.standard_normal((1000, 10)).astype(
+        np.float32)).to(cuda)
+    table[0] = float("nan")  # shard 0's first row
+    ids = torch.from_numpy(rng.integers(1, 1000, (4096, 8)).astype(
+        np.int32)).to(cuda)
+    mask = torch.from_numpy(rng.random((4096, 8)) < 0.8).to(cuda)
+    want = EB.embedding_bag_fixed(table, ids, mask)
+    before = EB.LAUNCHES
+    parts = [E.VocabParallel(table, _StubMesh(m, r)).partial(ids, mask)
+             for r in range(m)]
+    assert EB.LAUNCHES == before + m
+    got = parts[0]
+    for p in parts[1:]:
+        got = got + p
+    assert torch.isfinite(got).all()
+    assert torch.allclose(got, want, atol=1e-5, rtol=1e-5)

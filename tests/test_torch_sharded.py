@@ -6,7 +6,8 @@ be bit-identical for n = 1, 2, 3 and 4, on the conformance fixtures and
 on ``synthesize_run(12, 30)``.  Against the JAX ``ShardedEvaluator``
 in-process (one device, as the test process runs; its mesh invariance
 is JAX's own test, ``tests/test_sharded.py``): count columns exact, the
-rest within atol = rtol = 2e-4.  Also: uneven padding, an empty run,
+rest within atol = rtol = 2e-4, also at relevance level 2 and with
+``judged_docs_only``.  Also: uneven padding, an empty run,
 ``evaluate_buffers``, ``evaluate_table``, ``from_files(mesh=...)``,
 ``evaluate_sharded``, ``default_mesh`` and mesh entries that name an
 absent card.
@@ -49,9 +50,18 @@ def _synthetic():
     return synthesize_run(12, 30)
 
 
-@pytest.fixture(scope="module", params=["conformance", "synthetic"])
+#: the synthetic data set again, with an evaluator option
+OPTIONS = {"level_2": {"relevance_level": 2},
+           "judged_docs_only": {"judged_docs_only": True}}
+
+
+@pytest.fixture(scope="module",
+                params=["conformance", "synthetic", *OPTIONS])
 def case(request):
-    """(run, port evaluator, JAX sharded result) for one data set."""
+    """(run, port evaluator, JAX sharded result) for one data set, the
+    synthetic one also at relevance level 2 and with
+    ``judged_docs_only``."""
+    options = OPTIONS.get(request.param, {})
     if request.param == "conformance":
         run, qrel = _conformance()
         jrun = jax_trec.load_run(RUN)
@@ -60,8 +70,10 @@ def case(request):
         run, qrel = _synthetic()
         jrun, jqrel = jax_synthesize_run(12, 30)
         assert jrun == run and jqrel == qrel
-    ev = RelevanceEvaluator(qrel, supported_measures, device="cpu")
-    want = JaxSharded(JaxEvaluator(jqrel, jax_supported)).evaluate(jrun)
+    ev = RelevanceEvaluator(qrel, supported_measures, device="cpu",
+                            **options)
+    want = JaxSharded(JaxEvaluator(jqrel, jax_supported,
+                                   **options)).evaluate(jrun)
     return run, ev, want
 
 
