@@ -187,6 +187,32 @@ points a user calls:
   entry points count them.  P3: ``python -m repro_torch.launch.dryrun``
   on P_DRYRUN_CELLS on the (16, 16) and (2, 16, 16) fake meshes, every
   record read by ``roofline.analyze``.  Every child has a timeout.
+* Q. Model-parallel training over a ``DeviceMesh`` (a ``train``
+  ``make_step`` with a mesh).  Q1: a NCCL group of one, mesh (1, 1):
+  xDeepFM at train_batch (65,536 rows, the 39M x 10 table; B3 and B3-bwd
+  launched by the mesh steps), olmo-1b at full width and depth
+  (bfloat16, OLMO_TRAIN_BATCH x 4,096), GatedGCN minibatch_lg and
+  qwen3-moe at full width with the deepest stack whose reckoned training
+  bytes fit (printed first; ``fsdp`` and the bfloat16 m / factored v);
+  the two bfloat16 LMs and GatedGCN under deterministic algorithms (a
+  scatter-add otherwise adds in no fixed order, and a ReLU input at 0
+  may take either side); Q_STEPS steps each from the seed's weights and
+  a fresh state against the same steps without a mesh: parameters, m, v
+  and metrics held group by group, each at its own scale (``q_limits``:
+  each leaf's norm of m and v within Q_NORM_TOL, the bfloat16 LMs'
+  within LM_BF16_TOL and their entries by phase T's gradient gate at
+  LM_BF16_TOL; the metrics within GRAD_TOL), whether bit for bit; for
+  olmo-1b a control run with its smallest parameter's gradient doubled,
+  which must break a limit; step ms, peak bytes and the busy share of
+  one more profiled step.  Q2: two gloo ranks on cuda:0, mesh (1, 2),
+  ``python -m repro_torch.launch.sharded_train --size card``: xDeepFM at
+  65,536 rows with its table row-sharded in 2 (B3 and B3-bwd on each
+  rank's half), olmo-1b at full width with 2 layers and 2 x 1,024
+  tokens, GatedGCN full_graph_sm with its edges padded to the mesh, each
+  rank's gathered result after 2 steps against the unsharded steps
+  (``q_limits`` group by group), each shard's B3 and B3-bwd launches.
+  Q3: the dry run's train cells (Q_DRYRUN_CELLS) on the (16, 16) and (2,
+  16, 16) fake meshes, every record read by ``roofline.analyze``.
 * D. Each kernel against its plain PyTorch version on the main paths'
   inputs, with median times, the plain version's time, one PyTorch call's
   time where one computes the same function (``torch.topk``,
@@ -204,7 +230,9 @@ points a user calls:
   one of two candidate blocks (``[1, 500,000]``), B2's merge of the two
   blocks' top 1,000 (``[1, 2,000]``, equal to one B2 over the row) and
   B3 on one of two row shards of the xDeepFM table at the serve_bulk
-  bags.
+  bags; and phase Q's: B3 and B3-bwd on one of two row shards of the
+  table at train_batch's bags (``F.embedding_bag`` and its backward on
+  the half table timed beside them).
 
 Every phase prints one JSON line; any failure raises and exits non-zero.
 The last lines are the card's ``nvidia-smi`` name and power limit and
@@ -3494,9 +3522,10 @@ def _finish(procs, what, timeout=None):
         for p in procs:
             p.communicate()
         raise SmokeFailure(f"{what} did not finish in {timeout} s")
-    for p, (_, err) in zip(procs, outs):
-        check(p.returncode == 0, f"{what} exited {p.returncode}: "
-              f"{err[-2000:]}")
+    failed = [f"process {i} exited {p.returncode}: {err[-1500:]}"
+              for i, (p, (_, err)) in enumerate(zip(procs, outs))
+              if p.returncode != 0]
+    check(not failed, f"{what}: " + "\n".join(failed))
     return [o for o, _ in outs]
 
 
@@ -4124,36 +4153,45 @@ def _p2(seed, device, tmp):
     return res
 
 
+def _dryrun_cells(out, what, cells):
+    """The dry run's records under ``out``: each ``ok``, with a
+    collective, read by ``roofline.analyze``; two a cell (both meshes)."""
+    from repro_torch.analysis import roofline
+
+    res = {}
+    for name in sorted(os.listdir(out)):
+        with open(os.path.join(out, name)) as fh:
+            rec = json.load(fh)
+        check(rec["status"] == "ok", f"{what} {name}: {rec.get('error')}")
+        a = roofline.analyze(rec)
+        check(a is not None, f"{what} {name}: roofline.analyze read nothing")
+        check(rec["collectives"]["total"] > 0,
+              f"{what} {name}: no collective")
+        res[name[:-5]] = {
+            "n_chips": rec["n_chips"], "flops_per_device":
+            rec["cost"]["flops"], "bytes_per_device":
+            rec["cost"]["bytes accessed"], "collective_bytes_per_device":
+            rec["collectives"]["total"], "peak_bytes_per_device":
+            rec["memory"]["peak_bytes"], "opt_state_bytes_per_device":
+            rec["memory"].get("opt_state_bytes", 0),
+            "kernel_calls": rec["kernel_calls"], "dominant": a["dominant"],
+            "compute_s": a["compute_s"], "memory_s": a["memory_s"],
+            "collective_s": a["collective_s"], "step_s": rec["total_s"]}
+    check(len(res) == 2 * len(cells), f"{what} wrote {len(res)} records")
+    return res
+
+
 def _p3(tmp):
     """The dry run in a child: P_DRYRUN_CELLS on the (16, 16) and
     (2, 16, 16) fake meshes; ``roofline.analyze`` reads every record."""
-    from repro_torch.analysis import roofline
-
     out = os.path.join(tmp, "dryrun")
     args = ["-m", "repro_torch.launch.dryrun", "--out", out]
     for cell in P_DRYRUN_CELLS:
         args += ["--cell", cell]
     t0 = time.perf_counter()
     _finish([_spawn(args, _src_env())], "P3's dry run", P_TIMEOUT)
-    res = {"child_s": time.perf_counter() - t0, "cells": {}}
-    for name in sorted(os.listdir(out)):
-        with open(os.path.join(out, name)) as fh:
-            rec = json.load(fh)
-        check(rec["status"] == "ok", f"P3 {name}: {rec.get('error')}")
-        a = roofline.analyze(rec)
-        check(a is not None, f"P3 {name}: roofline.analyze read nothing")
-        check(rec["collectives"]["total"] > 0, f"P3 {name}: no collective")
-        res["cells"][name[:-5]] = {
-            "n_chips": rec["n_chips"], "flops_per_device":
-            rec["cost"]["flops"], "bytes_per_device":
-            rec["cost"]["bytes accessed"], "collective_bytes_per_device":
-            rec["collectives"]["total"], "peak_bytes_per_device":
-            rec["memory"]["peak_bytes"], "dominant": a["dominant"],
-            "compute_s": a["compute_s"], "memory_s": a["memory_s"],
-            "collective_s": a["collective_s"], "step_s": rec["total_s"]}
-    check(len(res["cells"]) == 2 * len(P_DRYRUN_CELLS),
-          f"P3 wrote {len(res['cells'])} records")
-    return res
+    return {"child_s": time.perf_counter() - t0,
+            "cells": _dryrun_cells(out, "P3", P_DRYRUN_CELLS)}
 
 
 def shard_rows(recsys, p2):
@@ -4267,6 +4305,463 @@ def phase_parallel(device, recsys, seed):
     return result, result["P2"]
 
 
+# -- phase Q: model-parallel training -------------------------------------
+
+Q_STEPS = 3  # train steps a model, mesh and unsharded each
+Q_RANKS = 2  # Q2: gloo ranks sharing cuda:0, mesh (1, 2)
+Q2_SIZE = "card"  # sharded_train's sizes: full widths
+Q2_CASES = "recsys:xdeepfm,lm:olmo-1b,gnn:full_graph_sm"
+Q_TIMEOUT = 300  # seconds: Q2's ranks, and Q3's dry run
+#: Q1's qwen3-moe batch (sequences, tokens a sequence) and the share of
+#: the card its reckoned training bytes may fill
+QWEN3_TRAIN = (1, 2048)
+QWEN3_TRAIN_SHARE = 0.7
+#: float32 copies of a parameter the update holds at once (the clipped
+#: gradient, m, g², v̂, the step, the parameter twice)
+UPDATE_F32_COPIES = 7
+Q_DRYRUN_CELLS = ("olmo-1b:train_4k", "qwen3-moe-235b-a22b:train_4k",
+                  "xdeepfm:train_batch", "gatedgcn:ogb_products")
+
+
+#: |‖got‖ / ‖want‖ - 1| of each leaf of m and v (the CPU tests' limit)
+Q_NORM_TOL = 1e-3
+
+
+def q_limits(bf16):
+    """Phase Q's limits, group by group, each at its own scale (keys of
+    ``sharded_train.differences``): each metric within GRAD_TOL of
+    max(1, |value|); m and v, which carry the gradient (m is 0.1 g after
+    one step, v 0.001 g²), leaf by leaf, v within twice m's limits (its
+    relative error is twice g's): in the float32 families each leaf's
+    norm within Q_NORM_TOL (their ReLUs take an entry far off where the
+    reordered sums move an input at 0 across it, so no entry is held);
+    in a bfloat16 LM (smooth: SwiGLU) each entry within LM_BF16_TOL ·
+    (|m| + the leaf's max|m|) (phase T's gradient gate) and each norm
+    within LM_BF16_TOL; the parameters within GRAD_TOL absolute (a
+    bfloat16 LM's leaves within LM_BF16_TOL of their own largest).  The
+    parameters cannot show a gradient's scale (AdamW's step is blind to
+    it) nor, in an LM's warm-up, a bfloat16 gradient's size (the step is
+    below an ulp); m, v and grad_norm do."""
+    if bf16:
+        state = {"entry_err": LM_BF16_TOL, "norm_gap": LM_BF16_TOL}
+    else:
+        state = {"norm_gap": Q_NORM_TOL}
+    return {"metrics": {"leaf_rel_err": GRAD_TOL},
+            "params": ({"leaf_rel_err": LM_BF16_TOL} if bf16 else
+                       {"max_abs_err": GRAD_TOL}),
+            "m": state, "v": {k: 2 * x for k, x in state.items()}}
+
+
+def q_failures(errors, bf16):
+    """The [group, statistic, reading, limit] of ``errors``
+    (``sharded_train.differences``) beyond :func:`q_limits`."""
+    return [[g, k, errors[g][k], lim]
+            for g, stats in q_limits(bf16).items()
+            for k, lim in stats.items() if not errors[g][k] <= lim]
+
+
+def _q_run(bundle, model, batches, mesh_run, profile=True, to=None):
+    """Q_STEPS steps from a fresh ``init_opt``: (every parameter, m, v
+    and each step's metrics, copied as ``sharded_train.gathered`` gives
+    them, ``to`` a device or on the card; per-step metrics; step ms;
+    peak bytes; launches of the mesh run; profile of one more step of
+    the mesh run)."""
+    import torch
+
+    from repro_torch.launch.sharded_train import gathered
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = bundle.init_opt(model)
+    held, metrics, ms = [], [], []
+    if mesh_run:
+        zero_launches()
+    for i in range(Q_STEPS):
+        batch = batches(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, state, m = bundle.step_fn(model, state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        vals = {k: float(v) for k, v in m.items()}
+        check(all(np.isfinite(v) for v in vals.values()),
+              f"non-finite train metrics {vals}")
+        held.append(m)
+        metrics.append(vals)
+    launches = read_launches() if mesh_run else None
+    peak = torch.cuda.max_memory_allocated()
+    out = {k: t.detach().to(to, copy=True)
+           for k, t in gathered(model, state, held).items()}
+    prof = None
+    if mesh_run and profile:  # one more step, after the results were taken
+        prof, model, state = profile_step(bundle, model, state, batches(0))
+    del model, state, held
+    torch.cuda.empty_cache()
+    return out, metrics, ms, peak, launches, prof
+
+
+def _q_case(what, arch, cfg, shape, make, batches, mesh, device,
+            bf16=False, deterministic=False, control=False):
+    """The step on the (1, 1) mesh against the same step without one,
+    each from the seed's weights (``make()``) and a fresh state, held
+    group by group to :func:`q_limits`; whether bit for bit; step ms,
+    peak bytes, busy share.  With ``control`` one more mesh run whose
+    smallest parameter's gradient is doubled must break a limit."""
+    from repro_torch.launch.sharded_train import differences
+
+    import torch
+
+    with _deterministic(deterministic):
+        # the mesh run's results wait on the host while the plain one runs
+        got, gm, gms, gpeak, launches, prof = _q_run(
+            arch.make_step(cfg, shape, device, mesh), make(), batches, True,
+            to="cpu")
+        want, wm, wms, wpeak, _, _ = _q_run(
+            arch.make_step(cfg, shape, device), make(), batches, False)
+    got = {k: t.to(device) for k, t in got.items()}
+
+    check(got.keys() == want.keys(), f"Q1 {what}: results differ in keys")
+    errors = differences(got, want)
+    same = all(bool(torch.equal(got[k], want[k])) for k in want)
+    del got
+    fails = q_failures(errors, bf16)
+    check(not fails, f"Q1 {what}: beyond the limits [group, statistic, "
+          f"reading, limit]: {fails}; every reading: {errors}")
+    out = {"steps": Q_STEPS, "mesh_metrics": gm, "plain_metrics": wm,
+           "differences": errors, "limits": q_limits(bf16),
+           "bit_for_bit": same, "mesh_step_ms": gms, "plain_step_ms": wms,
+           "step_ms": float(np.median(gms[1:])),
+           "mesh_peak_device_bytes": gpeak,
+           "plain_peak_device_bytes": wpeak, "launches": launches,
+           "device_busy_share": prof["device_busy_share"],
+           "profile": prof}
+    if control:
+        model = make()
+        leaf, p = min(model.named_parameters(), key=lambda kv: kv[1].numel())
+        p.register_hook(lambda g: 2 * g)
+        with _deterministic(deterministic):
+            bad = _q_run(arch.make_step(cfg, shape, device, mesh), model,
+                         batches, True, profile=False)[0]
+        errors = differences(bad, want)
+        caught = q_failures(errors, bf16)
+        check(bool(caught), f"Q1 {what}: the control (the gradient of "
+              f"{leaf} doubled) is within every limit")
+        out["control"] = {"fault": f"gradient of {leaf} doubled",
+                          "differences": errors, "caught_by": caught}
+        del bad
+    del want
+    return out
+
+
+def _qwen3_train_layers(cfg, device):
+    """(layers, reckoning): the deepest qwen3-moe stack whose training
+    bytes (``_lm_bytes``'s state: weights, gradients, bfloat16 m,
+    factored v; plus UPDATE_F32_COPIES float32 copies of one layer's
+    largest parameter, which the update holds at once) fill at most
+    QWEN3_TRAIN_SHARE of the card."""
+    import torch
+
+    from repro_torch.models import transformer as TF
+
+    r = _lm_bytes("qwen3-moe-235b-a22b", cfg, device)
+    meta = TF.Transformer(cfg, device="meta")
+    largest = max(p.numel() // cfg.n_layers * 4 for n, p in
+                  meta.named_parameters() if n.startswith("layers."))
+    head = max(p.numel() * 4 for n, p in meta.named_parameters()
+               if not n.startswith("layers."))
+    per_layer = r["train_state_bytes_per_layer"] + UPDATE_F32_COPIES * largest
+    total = torch.cuda.get_device_properties(0).total_memory
+    room = QWEN3_TRAIN_SHARE * total - r["train_state_bytes_outside_layers"] \
+        - UPDATE_F32_COPIES * head
+    layers = max(1, min(cfg.n_layers, int(room // per_layer)))
+    return layers, {"train_state_bytes_per_layer":
+                    r["train_state_bytes_per_layer"],
+                    "train_state_bytes_outside_layers":
+                    r["train_state_bytes_outside_layers"],
+                    "update_f32_bytes_per_layer":
+                    UPDATE_F32_COPIES * largest,
+                    "update_f32_bytes_outside_layers":
+                    UPDATE_F32_COPIES * head,
+                    "card_bytes": total, "share": QWEN3_TRAIN_SHARE,
+                    "layers": layers}
+
+
+def _q1(mesh, seed, device):
+    """Q1: xDeepFM at train_batch, olmo-1b at full depth, GatedGCN
+    minibatch_lg and qwen3-moe at the reckoned depth, each Q_STEPS steps
+    on the (1, 1) mesh against the same steps without a mesh."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.common import smoke_shape
+    from repro_torch.configs.gatedgcn import shape_config
+    from repro_torch.data import lm_data as LD
+    from repro_torch.launch.api import get_arch, to_device
+    from repro_torch.launch.steps import MODELS
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.gnn import GatedGCN
+
+    out = {}
+
+    def seeded(cls, cfg):
+        return lambda: cls(cfg, device=device, generator=torch.Generator(
+            device=device).manual_seed(seed))
+
+    arch = get_arch("xdeepfm")
+    cfg = arch.make_config(False)
+    shape = arch.shapes["train_batch"]
+    reqs = [to_device(recsys_request("xdeepfm", cfg, shape, seed,
+                                     5000 + i)[0], device)
+            for i in range(Q_STEPS)]
+    out["xdeepfm"] = _q_case("xdeepfm", arch, cfg, shape,
+                             seeded(MODELS["xdeepfm"], cfg),
+                             lambda i: reqs[i], mesh, device)
+    out["xdeepfm"]["batch"] = shape.get("batch")
+    got = out["xdeepfm"]["launches"]
+    check(got["embedding_bag"] > 0 and got["embedding_bag_backward"] > 0,
+          f"Q1 xDeepFM's mesh steps launched B3 {got['embedding_bag']} and "
+          f"B3-bwd {got['embedding_bag_backward']} times")
+    del reqs
+
+    arch = get_arch("olmo-1b")
+    cfg = arch.make_config(False)
+    b, s = OLMO_TRAIN_BATCH, arch.shapes["train_4k"].get("seq_len")
+    shape = smoke_shape(arch.shapes["train_4k"], global_batch=b)
+    data = LD.MarkovLM(LD.LMDataConfig(cfg.vocab_size, s, b, seed=seed))
+    batches = [to_device(data.batch(i), device) for i in range(Q_STEPS)]
+    out["olmo-1b"] = _q_case("olmo-1b", arch, cfg, shape,
+                             seeded(TF.Transformer, cfg),
+                             lambda i: batches[i], mesh, device,
+                             bf16=True, deterministic=True, control=True)
+    out["olmo-1b"].update(batch=b, seq=s, layers=cfg.n_layers)
+    del batches
+
+    arch = get_arch("gatedgcn")
+    shape = arch.shapes["minibatch_lg"]
+    cfg = shape_config(arch.make_config(False), shape)
+    batch = to_device(gnn_batch(shape, cfg, seed), device)
+    out["gatedgcn_minibatch_lg"] = _q_case(
+        "gatedgcn minibatch_lg", arch, arch.make_config(False), shape,
+        seeded(GatedGCN, cfg), lambda i: batch, mesh, device,
+        deterministic=True)
+    del batch
+
+    arch = get_arch("qwen3-moe-235b-a22b")
+    full = arch.make_config(False)
+    layers, reckoning = _qwen3_train_layers(full, device)
+    emit({"phase": "Q1 reckoning", "qwen3-moe-235b-a22b": reckoning})
+    cfg = dataclasses.replace(full, n_layers=layers)
+    b, s = QWEN3_TRAIN
+    shape = smoke_shape(arch.shapes["train_4k"], global_batch=b, seq_len=s)
+    data = LD.MarkovLM(LD.LMDataConfig(cfg.vocab_size, s, b, seed=seed))
+    batches = [to_device(data.batch(i), device) for i in range(Q_STEPS)]
+    out["qwen3-moe-235b-a22b"] = _q_case(
+        "qwen3-moe", arch, cfg, shape, seeded(TF.Transformer, cfg),
+        lambda i: batches[i], mesh, device, bf16=True, deterministic=True)
+    out["qwen3-moe-235b-a22b"].update(
+        batch=b, seq=s, layers=layers, of_layers=full.n_layers,
+        cut=f"n_layers {full.n_layers} -> {layers}, global_batch "
+            f"{arch.shapes['train_4k'].get('global_batch')} -> {b}, "
+            f"seq_len {arch.shapes['train_4k'].get('seq_len')} -> {s}",
+        reckoning=reckoning)
+    return out
+
+
+def _q2(seed, device, tmp):
+    """Q2: two gloo ranks on cuda:0, mesh (1, 2): ``python -m
+    repro_torch.launch.sharded_train --size card`` (xDeepFM at 65,536
+    rows with the table row-sharded in 2, olmo-1b at full width with 2
+    layers and 2 x 1,024 tokens, GatedGCN full_graph_sm with its edges
+    padded to the mesh), each rank's gathered result after 2 steps
+    against the unsharded steps in its own process; each shard's B3 and
+    B3-bwd launches as the C entry points count them."""
+    env = _src_env()
+    rank_device = "cuda:0" if device == "cuda" else device
+    t0 = time.perf_counter()
+    procs = [_spawn(["-m", "repro_torch.launch.sharded_train", "--size",
+                     Q2_SIZE, "--mesh", f"1x{Q_RANKS}", "--device",
+                     rank_device, "--backend", "gloo", "--cases", Q2_CASES,
+                     "--seed", str(seed),
+                     "--store", os.path.join(tmp, "store"), "--rank",
+                     str(r), "--world-size", str(Q_RANKS)], env)
+             for r in range(Q_RANKS)]
+    outs = _finish(procs, "Q2's ranks", Q_TIMEOUT)
+    res = {"ranks": Q_RANKS, "mesh": [1, Q_RANKS], "backend": "gloo",
+           "device": rank_device, "children_s": time.perf_counter() - t0,
+           "shards": []}
+    cases = Q2_CASES.split(",")
+    lines = [json.loads(text.strip().splitlines()[-1]) for text in outs]
+    for r, line in enumerate(lines):
+        check(set(line["errors"]) == set(cases),
+              f"Q2 rank {r} ran {sorted(line['errors'])}")
+    fails = {f"rank {r} {case}": [q_failures(e, case.startswith("lm:")), e]
+             for r, line in enumerate(lines)
+             for case, e in line["errors"].items()
+             if q_failures(e, case.startswith("lm:"))}
+    check(not fails, f"Q2 beyond the limits ([group, statistic, reading, "
+          f"limit], then every reading): {fails}")
+    for r, line in enumerate(lines):
+        got = line["launches"]["recsys:xdeepfm"]
+        check(got["embedding_bag"] >= 1 and got["embedding_bag_backward"] >= 1,
+              f"Q2 rank {r} xDeepFM: B3 and B3-bwd not launched on its "
+              f"shard: {got}")
+        res["shards"].append({"rank": r, "launches": line["launches"],
+                              "errors": line["errors"],
+                              "limits": {c: q_limits(c.startswith("lm:"))
+                                         for c in cases},
+                              "case_seconds": line["case_seconds"]})
+    return res
+
+
+def _q3_start(tmp):
+    """Q3: the dry run of Q_DRYRUN_CELLS on the (16, 16) and (2, 16, 16)
+    fake meshes, one child a mesh, started now (they need no card, so
+    they run beside Q2); :func:`_q3` reads them."""
+    out = os.path.join(tmp, "dryrun_train")
+    procs = []
+    for mesh in ("single", "multi"):
+        args = ["-m", "repro_torch.launch.dryrun", "--out", out, "--mesh",
+                mesh]
+        for cell in Q_DRYRUN_CELLS:
+            args += ["--cell", cell]
+        procs.append(_spawn(args, _src_env()))
+    return procs, out, time.perf_counter()
+
+
+def _q3(started):
+    """Q3's records (:func:`_dryrun_cells`); xDeepFM's count B3 and
+    B3-bwd."""
+    procs, out, t0 = started
+    _finish(procs, "Q3's dry run", Q_TIMEOUT)
+    res = {"child_s": time.perf_counter() - t0,
+           "cells": _dryrun_cells(out, "Q3", Q_DRYRUN_CELLS)}
+    for name, cell in res["cells"].items():
+        if name.startswith("xdeepfm"):
+            check(cell["kernel_calls"].get("embedding_bag_fixed", 0) > 0
+                  and cell["kernel_calls"].get(
+                      "embedding_bag_fixed_backward", 0) > 0,
+                  f"Q3 {name}: B3 and B3-bwd not counted: "
+                  f"{cell['kernel_calls']}")
+    return res
+
+
+def phase_train_parallel(device, seed):
+    """Q1 (a NCCL group of one, mesh (1, 1)), Q2 (two gloo ranks on
+    cuda:0), Q3 (the dry run's train cells, two children beside Q2; Q3's
+    seconds are Q2's and Q3's together)."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    result = {"phase": "Q"}
+    t0 = time.perf_counter()
+    mesh = _mesh_of_one(device)
+    try:
+        result["Q1"] = _q1(mesh, seed, device)
+    finally:
+        dist.destroy_process_group()
+    result["Q1"]["seconds"] = time.perf_counter() - t0
+    # Q1's cached blocks go back to the card: Q2's two ranks need room
+    result["device_free_bytes_before_Q2"] = device_free_bytes()
+    tmp = tempfile.mkdtemp(prefix="phase_q_")
+    q3 = None
+    try:
+        t0 = time.perf_counter()
+        q3 = _q3_start(tmp)
+        result["Q2"] = _q2(seed, device, tmp)
+        result["Q2"]["seconds"] = time.perf_counter() - t0
+        result["Q3"] = _q3(q3)
+        result["Q3"]["seconds"] = time.perf_counter() - t0
+    finally:
+        for p in q3[0] if q3 else ():
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return result, result["Q2"]
+
+
+def train_shard_rows(args, q2):
+    """Kernel rows of phase Q's shards on the card, at phase T's
+    train_batch bags (xDeepFM's 65,536 rows x 3 multi-hot fields x 8
+    lookups): B3 and B3-bwd on one of two row shards of the table (rank
+    0's rows, as Q2's rank 0 holds them; a lookup of the other half is
+    masked), each against its plain version; launches as Q2's rank 0
+    counted them in its xDeepFM steps."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import embedding_bag as EB
+    from repro_torch.models import embedding as E
+
+    grad, ids, mask, v, f, field_rows = args
+    n, m = ids.shape
+    e = grad.shape[1]
+    half = -(-v // Q_RANKS)
+    gen = torch.Generator(device=grad.device).manual_seed(1)
+    table = torch.randn((half, e), generator=gen, device=grad.device)
+    # rank 0's ids and mask, as the vocab-parallel lookup makes them
+    shard = E.VocabParallel.__new__(E.VocabParallel)
+    shard.local, shard.row0 = table, 0
+    lids, hit, _ = shard.local_ids(EB._fixed_rows(ids, f, field_rows), mask)
+    launches = q2["shards"][0]["launches"]["recsys:xdeepfm"]
+    got = EB.embedding_bag_fixed(table, lids, hit)
+    plain = EB.embedding_bag_fixed_plain(table, lids, hit)
+    torch.cuda.synchronize()
+    check(bool((got == plain).all()),
+          "B3 on a train row shard differs from its plain version")
+    held = int(hit.sum())
+    unique = int(torch.unique(lids[hit]).numel())
+    out = [dict(
+        name="embedding_bag", route="cuda",
+        source="src/repro_torch/csrc/embedding_bag.cu",
+        replaces="src/repro/kernels/embedding_bag.py:34",
+        launches=launches["embedding_bag"],
+        max_abs_err=float((got - plain).abs().max()),
+        ms=time_ms(lambda: EB.embedding_bag_fixed(table, lids, hit)),
+        plain_ms=time_ms(lambda: EB.embedding_bag_fixed_plain(table, lids,
+                                                              hit)),
+        shape=[half, e, n * m, n], held_lookups=held, unique_rows=unique,
+        shards=Q_RANKS, on="a row shard of the table, train_batch's bags",
+        **bound(unique * e * 4 + n * m * 5 + n * e * 4, 2 * n * m * e),
+        library_ms=time_ms(lambda: F.embedding_bag(
+            lids.long(), table, mode="sum",
+            per_sample_weights=hit.to(torch.float32))))]
+    del got, plain, table
+    bargs = (grad, lids, hit, half)
+    first = EB.embedding_bag_fixed_backward(*bargs)
+    plain = EB.embedding_bag_fixed_backward_plain(*bargs)
+    torch.cuda.synchronize()
+    err = float((first - plain).abs().max())
+    check(err <= B3_BWD_TOL, f"B3-bwd on a row shard {err} from its plain "
+          f"version")
+    del first, plain
+    leaf = torch.zeros((half, e), device=grad.device, requires_grad=True)
+    lib_out = F.embedding_bag(lids.long(), leaf, mode="sum",
+                              per_sample_weights=hit.to(torch.float32))
+    out.append(dict(
+        name="embedding_bag_backward", route="cuda",
+        source="src/repro_torch/csrc/embedding_bag.cu",
+        replaces="none: port-only (the JAX package trains without its "
+                 "Pallas kernel, src/repro/models/embedding.py:50-73)",
+        launches=launches["embedding_bag_backward"], max_abs_err=err,
+        ms=time_ms(lambda: EB.embedding_bag_fixed_backward(*bargs),
+                   iters=10),
+        plain_ms=time_ms(lambda: EB.embedding_bag_fixed_backward_plain(
+            *bargs), iters=10),
+        shape=[half, e, n * m, n], held_lookups=held, shards=Q_RANKS,
+        on="a row shard of the table, train_batch's bags",
+        # the half table's dense gradient written once, the ids, mask
+        # and output gradient read once
+        **bound(half * e * 4 + n * m * 5 + n * e * 4, 2 * held * e),
+        library_ms=time_ms(lambda: torch.autograd.grad(
+            lib_out, leaf, grad, retain_graph=True), iters=10)))
+    del lib_out, leaf
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4328,6 +4823,7 @@ def main(argv=None) -> int:
     timed(phase_lm, "cuda", args.seed)
     _, meshes = timed(phase_sharded, "cuda", paper, recsys, args.seed)
     _, p2 = timed(phase_parallel, "cuda", recsys, args.seed)
+    _, q2 = timed(phase_train_parallel, "cuda", args.seed)
     launches = {"fused_measures": out_b["launches"]["fused_measures"],
                 "fused_measures_sweep": out_f["launches"]["fused_measures"],
                 "fused_measures_deep":
@@ -4344,6 +4840,7 @@ def main(argv=None) -> int:
         train["xdeepfm_launches"]["embedding_bag_backward"],
         out_t["b3_backward"]["max_abs_err"]))
     rows.extend(shard_rows(recsys, p2))
+    rows.extend(train_shard_rows(train["b3_backward"], q2))
     emit({"phase": "D", "seconds": time.perf_counter() - t0})
     emit({"kernels": rows})
     print(card, flush=True)

@@ -147,14 +147,17 @@ def metric_finalize(state: MetricState,
 
 def rank_metrics(gold_ranks: torch.Tensor,
                  mask: Optional[torch.Tensor] = None,
-                 ks: Tuple[int, ...] = (1, 5, 10)) -> Dict[str, torch.Tensor]:
+                 ks: Tuple[int, ...] = (1, 5, 10),
+                 reduce=None) -> Dict[str, torch.Tensor]:
     """MRR, NDCG and success@k from 1-based gold-item ranks (no sort).
 
     The single-relevant-document case of trec_eval's measures:
     ``recip_rank == 1/rank``, ``success_k == rank <= k``,
     ``ndcg == 1/log2(rank+1)``; means over the entries ``mask`` keeps (at
     least 1).  Used for the next-item / node-class evaluation fused into
-    the train step.
+    the train step.  ``reduce``: a function of the stacked sums (the
+    measures' and the count), applied before the division (a sharded
+    step's sum over its ranks).
 
     >>> r = rank_metrics(torch.tensor([1, 2, 20]))
     >>> round(float(r["recip_rank"]), 4), float(r["success_5"])
@@ -164,11 +167,14 @@ def rank_metrics(gold_ranks: torch.Tensor,
     if mask is None:
         mask = torch.ones_like(r, dtype=torch.bool)
     m = mask.to(torch.float32)
-    n = torch.clamp(torch.sum(m), min=1.0)
-    out = {
-        "recip_rank": torch.sum(m / r) / n,
-        "ndcg": torch.sum(m / torch.log2(r + 1.0)) / n,
-    }
+    sums = {"recip_rank": torch.sum(m / r),
+            "ndcg": torch.sum(m / torch.log2(r + 1.0))}
     for k in ks:
-        out[f"success_{k}"] = torch.sum(m * (r <= k)) / n
-    return out
+        sums[f"success_{k}"] = torch.sum(m * (r <= k))
+    count = torch.sum(m)
+    if reduce is not None:
+        total = reduce(torch.stack(list(sums.values()) + [count]))
+        sums = dict(zip(sums, total[:-1]))
+        count = total[-1]
+    n = torch.clamp(count, min=1.0)
+    return {k: v / n for k, v in sums.items()}

@@ -24,7 +24,7 @@ call :func:`constrain`, a no-op for ``spec=None``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Mapping, Optional, Tuple
 
 import torch
 
@@ -82,6 +82,15 @@ def local_bounds(shape, spec: Spec, mesh):
     return out
 
 
+def split_axes(spec: Spec, mesh) -> Tuple[str, ...]:
+    """The axes of ``mesh`` that ``spec`` splits (those of size 1 left
+    out)."""
+    from repro_torch.distributed import spmd
+
+    return tuple(n for entry in spec or () for n in _axes(entry)
+                 if spmd.axis_size(mesh, n) > 1)
+
+
 def _dim(mesh, name: str) -> int:
     return tuple(mesh.mesh_dim_names).index(name)
 
@@ -133,6 +142,90 @@ def local_input(t, spec: Spec, mesh):
     return out
 
 
+def leaf_block(p: torch.Tensor, spec: Spec, mesh,
+               own: bool = False) -> torch.Tensor:
+    """This rank's block of the parameter ``p`` as a tensor that
+    gradients land on: ``p`` itself where the block is all of it (a
+    replicated parameter), else the block made a leaf: with ``own`` a
+    contiguous copy of its own that requires grad when ``p`` does, else
+    a detached view (sharing ``p``'s storage) that requires grad when
+    ``p`` does and grad is enabled.  A ``meta`` parameter's block is a
+    ``meta`` tensor of its own."""
+    block = local_shard(p, spec, mesh)
+    if block is p:
+        return p
+    if own:
+        return block.detach().clone(
+            memory_format=torch.contiguous_format).requires_grad_(
+                p.requires_grad)
+    return block.detach().requires_grad_(p.requires_grad
+                                         and torch.is_grad_enabled())
+
+
+class ShardedParams(Mapping):
+    """A model's parameters laid out on a mesh by ``specs``: the mapping
+    is ``{name: this rank's block}`` (:func:`leaf_block`: the tensors a
+    sharded step differentiates and updates in place), with each one's
+    spec and global shape; ``module`` is the model they were cut from.
+    :meth:`dtensors` gives them as DTensors (for ``full_tensor`` and
+    checkpoints).
+
+    Without ``own`` (serving) each split parameter's block is a view of
+    the module's, which stays whole.  With ``own`` (training, see
+    :func:`train_layout`) each such block is a copy of its own and the
+    module's parameter becomes a ``meta`` tensor of its shape, so that
+    the rank keeps its blocks and the replicated parameters only (what
+    the dry run counts)."""
+
+    def __init__(self, module, specs, mesh, own: bool = False):
+        self.module, self.mesh = module, mesh
+        named = dict(module.named_parameters())
+        self.specs = {n: tuple(specs[n]) for n in named}
+        self.shapes = {n: tuple(p.shape) for n, p in named.items()}
+        self.blocks = {}
+        for n in list(named):
+            p = named.pop(n)  # the last reference here, once replaced
+            self.blocks[n] = leaf_block(p, self.specs[n], mesh, own)
+            if own and self.blocks[n] is not p:
+                owner, _, leaf = n.rpartition(".")
+                stub = torch.empty(p.shape, dtype=p.dtype, device="meta")
+                setattr(module.get_submodule(owner), leaf,
+                        torch.nn.Parameter(stub, requires_grad=False))
+
+    def __getitem__(self, name):
+        return self.blocks[name]
+
+    def __iter__(self):
+        return iter(self.blocks)
+
+    def __len__(self):
+        return len(self.blocks)
+
+    def dtensors(self):
+        return {n: from_local(b.detach(), self.specs[n], self.mesh,
+                              self.shapes[n])
+                for n, b in self.blocks.items()}
+
+    def full(self):
+        """Every parameter's whole value (a collective on every rank)."""
+        return {n: full_tensor(t) for n, t in self.dtensors().items()}
+
+
+def train_layout(module, specs, mesh) -> ShardedParams:
+    """``module``'s parameters laid out on ``mesh`` for training
+    (``ShardedParams`` with ``own``).  The module keeps its layout: a
+    second call on it returns the same blocks (the module's split
+    parameters are ``meta`` from the first call on)."""
+    done = module.__dict__.get("_train_layout")
+    if done is None:
+        done = ShardedParams(module, specs, mesh, own=True)
+        module.__dict__["_train_layout"] = done
+    elif done.mesh is not mesh:
+        raise ValueError("the model's parameters are laid out on another "
+                         "mesh")
+    return done
+
+
 def full_tensor(t):
     """A DTensor's whole value on every rank, gathered with the port's
     collectives (``spmd.all_gather``: c10d ``all_gather_into_tensor``,
@@ -165,6 +258,18 @@ def full_tensor(t):
                 x = torch.nn.functional.pad(x, pad)
             x = spmd.all_gather(x, dim, mesh, name).narrow(dim, 0, n)
     return x
+
+
+def spec_of(t) -> Spec:
+    """The spec of a DTensor's placements (a dimension split over several
+    mesh axes names them in mesh order, the first major)."""
+    names = tuple(t.device_mesh.mesh_dim_names)
+    out = [[] for _ in range(t.dim())]
+    for i, p in enumerate(t.placements):
+        if p.is_shard():
+            out[p.dim].append(names[i])
+    return tuple(None if not a else a[0] if len(a) == 1 else tuple(a)
+                 for a in out)
 
 
 def local(t):

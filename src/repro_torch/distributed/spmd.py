@@ -8,10 +8,18 @@ mesh and an axis name (or a tuple of names: the axes in turn, the first
 one major).  ``mesh=None`` means one device: every collective is the
 identity, every axis has size 1.  An axis of size 1 runs no collective.
 
-Every collective is recorded in the active :class:`CollectiveLog`, if
-any, by its local result bytes (a reduce-scatter's scaled by its group
-size, as ``repro.analysis.hlo.collective_bytes`` counts XLA's): the dry
-run's per-device collective traffic.
+Under autograd each collective has the backward that JAX's autodiff
+takes of it: ``all_gather`` and ``psum_scatter`` are each other's
+transpose, a ``psum`` (which completes partial sums that every rank then
+uses alike) passes the cotangent through, and :func:`fan_out` (identity
+forward) sums the cotangent of a replicated tensor that enters work each
+rank does on its own block.
+
+Every collective, forward or backward, is recorded in the active
+:class:`CollectiveLog`, if any, by its local result bytes (a
+reduce-scatter's scaled by its group size, as
+``repro.analysis.hlo.collective_bytes`` counts XLA's): the dry run's
+per-device collective traffic.
 """
 
 from __future__ import annotations
@@ -117,13 +125,7 @@ def _live(mesh, axes):
     return [n for n in _names(axes) if axis_size(mesh, n) > 1]
 
 
-def psum(x: torch.Tensor, mesh, axes, op: str = "sum") -> torch.Tensor:
-    """``lax.psum`` (``op="max"``: ``lax.pmax``) of ``x`` over ``axes``;
-    returns a new tensor, ``x`` is left as it was."""
-    live = _live(mesh, axes)
-    if not live:
-        return x
-    red = dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX
+def _psum(x, mesh, live, red):
     x = x.contiguous().clone()
     for name in live:
         record("all-reduce", _nbytes(x))
@@ -131,10 +133,7 @@ def psum(x: torch.Tensor, mesh, axes, op: str = "sum") -> torch.Tensor:
     return x
 
 
-def all_gather(x: torch.Tensor, dim: int, mesh, axes) -> torch.Tensor:
-    """``lax.all_gather(x, axes, axis=dim, tiled=True)``: the blocks of
-    every rank along ``axes`` concatenated on ``dim`` in rank order."""
-    live = _live(mesh, axes)
+def _all_gather(x, dim, mesh, live):
     for name in reversed(live):  # minor axis first: blocks stay in order
         m = axis_size(mesh, name)
         src = x.movedim(dim, 0).contiguous()
@@ -145,21 +144,129 @@ def all_gather(x: torch.Tensor, dim: int, mesh, axes) -> torch.Tensor:
     return x
 
 
-def psum_scatter(x: torch.Tensor, dim: int, mesh, axis: str) -> torch.Tensor:
-    """``lax.psum_scatter(x, axis, scatter_dimension=dim, tiled=True)``:
-    the sum over ``axis``, of which this rank keeps block ``index`` of
-    ``dim`` (``dim`` must split evenly)."""
-    m = axis_size(mesh, axis)
-    if m == 1:
+def _psum_scatter(x, dim, mesh, live):
+    for name in live:  # major axis first: the transpose of _all_gather
+        m = axis_size(mesh, name)
+        if x.shape[dim] % m:
+            raise ValueError(f"dimension {dim} of {tuple(x.shape)} does "
+                             f"not split over {m} ranks")
+        src = x.movedim(dim, 0).contiguous()
+        out = src.new_empty((src.shape[0] // m,) + tuple(src.shape[1:]))
+        record("reduce-scatter", _nbytes(out) * m)
+        dist.reduce_scatter_tensor(out, src, group=mesh.get_group(name))
+        x = out.movedim(0, dim)
+    return x
+
+
+class _Sum(torch.autograd.Function):
+    """A sum that completes partial sums: every rank then uses the whole
+    value alike, so each partial's gradient is the whole cotangent
+    (JAX's transpose of ``psum`` inside ``shard_map``)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, live):
+        return _psum(x, mesh, live, dist.ReduceOp.SUM)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _FanOut(torch.autograd.Function):
+    """Identity forward; the cotangent summed over the axes (Megatron's
+    ``f``: a value replicated over them enters work that differs by
+    rank, so each rank's gradient is a partial one)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, live):
+        ctx.mesh, ctx.live = mesh, live
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _psum(g, ctx.mesh, ctx.live, dist.ReduceOp.SUM), None, None
+
+
+class _AllGather(torch.autograd.Function):
+    """Tiled all-gather; its transpose is the reduce-scatter."""
+
+    @staticmethod
+    def forward(ctx, x, dim, mesh, live):
+        ctx.dim, ctx.mesh, ctx.live = dim, mesh, live
+        return _all_gather(x, dim, mesh, live)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _psum_scatter(g, ctx.dim, ctx.mesh, ctx.live), None, None, \
+            None
+
+
+class _PsumScatter(torch.autograd.Function):
+    """Tiled reduce-scatter; its transpose is the all-gather."""
+
+    @staticmethod
+    def forward(ctx, x, dim, mesh, live):
+        ctx.dim, ctx.mesh, ctx.live = dim, mesh, live
+        return _psum_scatter(x, dim, mesh, live)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g.contiguous(), ctx.dim, ctx.mesh, ctx.live), \
+            None, None, None
+
+
+def _tracked(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def psum(x: torch.Tensor, mesh, axes, op: str = "sum") -> torch.Tensor:
+    """``lax.psum`` (``op="max"``: ``lax.pmax``) of ``x`` over ``axes``;
+    returns a new tensor, ``x`` is left as it was.  Under autograd a sum
+    takes the identity backward (:class:`_Sum`); a max has none."""
+    live = _live(mesh, axes)
+    if not live:
         return x
-    if x.shape[dim] % m:
-        raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not "
-                         f"split over {m} ranks")
-    src = x.movedim(dim, 0).contiguous()
-    out = src.new_empty((src.shape[0] // m,) + tuple(src.shape[1:]))
-    record("reduce-scatter", _nbytes(out) * m)
-    dist.reduce_scatter_tensor(out, src, group=mesh.get_group(axis))
-    return out.movedim(0, dim)
+    if op == "sum":
+        if _tracked(x):
+            return _Sum.apply(x, mesh, live)
+        return _psum(x, mesh, live, dist.ReduceOp.SUM)
+    return _psum(x.detach(), mesh, live, dist.ReduceOp.MAX)
+
+
+def fan_out(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``x`` itself, with its gradient summed over ``axes`` in backward:
+    the step where a tensor replicated over ``axes`` enters work that
+    each rank does on its own block (a column-parallel product, this
+    rank's experts or edges)."""
+    live = _live(mesh, axes)
+    if not live or not _tracked(x):
+        return x
+    return _FanOut.apply(x, mesh, live)
+
+
+def all_gather(x: torch.Tensor, dim: int, mesh, axes) -> torch.Tensor:
+    """``lax.all_gather(x, axes, axis=dim, tiled=True)``: the blocks of
+    every rank along ``axes`` concatenated on ``dim`` in rank order (the
+    first axis major).  Its backward is :func:`psum_scatter`."""
+    live = _live(mesh, axes)
+    if not live:
+        return x
+    if _tracked(x):
+        return _AllGather.apply(x, dim, mesh, live)
+    return _all_gather(x, dim, mesh, live)
+
+
+def psum_scatter(x: torch.Tensor, dim: int, mesh, axes) -> torch.Tensor:
+    """``lax.psum_scatter(x, axes, scatter_dimension=dim, tiled=True)``:
+    the sum over ``axes``, of which this rank keeps block ``index`` of
+    ``dim`` (``dim`` must split evenly).  Its backward is
+    :func:`all_gather`."""
+    live = _live(mesh, axes)
+    if not live:
+        return x
+    if _tracked(x):
+        return _PsumScatter.apply(x, dim, mesh, live)
+    return _psum_scatter(x, dim, mesh, live)
 
 
 def regroup(x: torch.Tensor, dim: int, mesh, axis: str, have,

@@ -34,7 +34,9 @@ lookup order.  On the card that is a second kernel of
 replaces no Pallas kernel, since the JAX package trains without its
 kernel and lets XLA form the scatter), deterministic bit for bit;
 ``BACKWARD_LAUNCHES`` counts its launches.  On the CPU it is
-:func:`embedding_bag_fixed_backward_plain`.
+:func:`embedding_bag_fixed_backward_plain`.  It too is a ``torch.library``
+op, ``repro_torch::embedding_bag_fixed_backward``, with CPU, CUDA and
+Meta implementations, so the dry run's train cells count it.
 """
 
 from __future__ import annotations
@@ -325,15 +327,15 @@ def embedding_bag_fixed_backward(grad: torch.Tensor, ids: torch.Tensor,
     tensors = [grad, ids] + ([] if mask is None else [mask])
     if any(t.device != grad.device for t in tensors):
         raise ValueError("grad, ids and mask must lie on one device")
-    if grad.device.type == "cpu":
-        return embedding_bag_fixed_backward_plain(grad, ids, mask, num_rows,
-                                                  fields, field_rows)
-    if grad.device.type != "cuda":
-        raise ValueError(f"unsupported device {grad.device}")
-    if grad.dtype != torch.float32 or not grad.is_contiguous():
-        raise ValueError("grad must be a contiguous float32 tensor")
     if ids.is_floating_point():
         raise ValueError("ids must be an integer tensor")
+    return torch.ops.repro_torch.embedding_bag_fixed_backward(
+        grad, ids, mask, int(num_rows), int(fields), int(field_rows))
+
+
+def _backward_cuda(grad, ids, mask, num_rows, fields, field_rows):
+    if grad.dtype != torch.float32 or not grad.is_contiguous():
+        raise ValueError("grad must be a contiguous float32 tensor")
     if mask is not None and not mask.is_contiguous():
         raise ValueError("mask must be contiguous")
     n, m = ids.shape
@@ -345,6 +347,19 @@ def embedding_bag_fixed_backward(grad: torch.Tensor, ids: torch.Tensor,
         raise ValueError(f"{n * m} lookups x {e} columns exceed one grid")
     return launch_backward(grad, mask, m, num_rows,
                            *prepare_backward(ids, fields, field_rows))
+
+
+def _backward_meta(grad, ids, mask, num_rows, fields, field_rows):
+    return grad.new_empty((num_rows, grad.shape[1]), dtype=torch.float32)
+
+
+_LIB.define("embedding_bag_fixed_backward(Tensor grad, Tensor ids, "
+            "Tensor? mask, int num_rows, int fields, int field_rows) "
+            "-> Tensor")
+_LIB.impl("embedding_bag_fixed_backward", embedding_bag_fixed_backward_plain,
+          "CPU")
+_LIB.impl("embedding_bag_fixed_backward", _backward_cuda, "CUDA")
+_LIB.impl("embedding_bag_fixed_backward", _backward_meta, "Meta")
 
 
 def prepare_backward(ids, fields: int = 1, field_rows: int = 0):

@@ -36,8 +36,12 @@ Run it in its own process (it starts the fake group)::
         [--out experiments/dryrun] [--devices-per-pod 256] [--smoke]
 
 Cells whose shape has a ``skip_reason`` are written as JAX writes them.
-``train`` cells are written ``skipped``: model-parallel training is the
-next slice of the port.  JAX's ``--probe-scan`` has no counterpart: XLA
+A ``train`` cell's arguments are the model, the optimizer state's blocks
+(``bundle.init_opt`` on ``meta``) and the batch, and every figure covers
+the forward, the backward and the update (``memory["opt_state_bytes"]``
+the state's blocks; ``kernel_calls`` counts B3 and B3-bwd,
+``repro_torch::embedding_bag_fixed_backward``).  JAX's ``--probe-scan``
+has no counterpart: XLA
 counts a scan body once whatever its trip count, so JAX compiles one- and
 two-layer probes to correct it; the port runs its layer loop eagerly, so
 every layer is counted.
@@ -134,10 +138,10 @@ def _local_bytes(shape, dtype_size: int, spec, mesh) -> int:
     return n
 
 
-def param_specs(arch, cfg, mesh):
+def param_specs(arch, cfg, mesh, shape=None):
     """The model's parameters by name, each with its spec on ``mesh``
     (JAX's ``param_partition_specs`` for an LM, the recsys step's table
-    specs, the rest replicated)."""
+    specs, the rest replicated; GatedGCN's at ``shape``'s widths)."""
     from repro_torch.launch.mesh import data_axes_of
 
     if arch.family == "lm":
@@ -159,9 +163,14 @@ def param_specs(arch, cfg, mesh):
 
         model = MODELS[arch.name](cfg, device="meta")
         tables = rec_lib.SHARDED_TABLES[arch.name]
-        return model, {n: (p, ("model",) + (None,) * (p.dim() - 1)
-                           if n in tables else ())
-                       for n, p in model.named_parameters()}
+        specs = rec_lib.table_specs(model, arch.name)
+        return model, {n: (p, specs[n]) for n, p in model.named_parameters()}
+    if arch.family == "gnn":
+        from repro_torch.configs.gatedgcn import shape_config
+        from repro_torch.models.gnn import GatedGCN
+
+        model = GatedGCN(shape_config(cfg, shape), device="meta")
+        return model, {n: (p, ()) for n, p in model.named_parameters()}
     return None, {}
 
 
@@ -196,7 +205,8 @@ def _plain_bytes(t) -> int:
 
 def _step_args(arch, bundle, model, shape):
     """The step's arguments: the model, then meta tensors of the specs
-    (a decode's position is the cache's last slot)."""
+    (a decode's position is the cache's last slot; a train step's
+    optimizer state is its blocks, from ``bundle.init_opt``)."""
     from repro_torch.launch.api import TensorSpec
 
     specs = bundle.arg_specs
@@ -208,6 +218,8 @@ def _step_args(arch, bundle, model, shape):
             args.append(shape.get("seq_len") - 1)
         else:
             args.append(_meta_tree(spec))
+    if shape.kind == "train":  # the optimizer state's blocks
+        args[1] = bundle.init_opt(model)
     return args
 
 
@@ -221,7 +233,6 @@ def run_cell(arch_name: str, shape_name: str, mesh_name: str,
     from repro_torch.distributed import spmd
     from repro_torch.launch.api import get_arch
     from repro_torch.launch.mesh import mesh_shape
-    from repro_torch.launch.steps import TRAIN_WITH_MESH
 
     arch = get_arch(arch_name)
     shape = arch.shapes[shape_name]
@@ -231,10 +242,6 @@ def run_cell(arch_name: str, shape_name: str, mesh_name: str,
         rec["status"] = "skipped"
         rec["skip_reason"] = shape.skip_reason
         return rec
-    if shape.kind == "train":
-        rec["status"] = "skipped"
-        rec["skip_reason"] = TRAIN_WITH_MESH
-        return rec
     mesh = _mesh_for(mesh_name, devices_per_pod)
     rec["mesh_shape"] = mesh_shape(mesh)
     rec["n_chips"] = int(mesh.size())
@@ -242,7 +249,7 @@ def run_cell(arch_name: str, shape_name: str, mesh_name: str,
     t0 = time.time()
     try:
         bundle = arch.make_step(cfg, shape, device="meta", mesh=mesh)
-        model, params = param_specs(arch, cfg, mesh)
+        model, params = param_specs(arch, cfg, mesh, shape)
         args = _step_args(arch, bundle, model, shape)
         param_bytes = sum(_local_bytes(p.shape, p.element_size(), spec, mesh)
                           for p, spec in params.values())
@@ -263,6 +270,9 @@ def run_cell(arch_name: str, shape_name: str, mesh_name: str,
         rec["memory"] = {
             "argument_bytes": int(arg_bytes),
             "param_bytes": int(param_bytes),
+            "opt_state_bytes": int(sum(_plain_bytes(t) for t in
+                                       _leaves(args[1]))
+                                   if shape.kind == "train" else 0),
             "output_bytes": int(sum(_nbytes(t) for t in _leaves(out)
                                     if id(t) not in inputs)),
             "temp_bytes": int(max(peak - arg_bytes, 0)),

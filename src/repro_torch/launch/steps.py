@@ -35,10 +35,36 @@ scores its block and takes its top-k with B2, and a second B2 over the
 gathered ``m·k`` (value, index) pairs merges them, ties to the lower
 index and NaN last as one top-k over all of them).  Sharded outputs come
 back as DTensors laid out as JAX's ``out_shardings``; metrics are the
-same on every rank.  A ``train`` kind with a mesh raises
-``NotImplementedError``: model-parallel training (FSDP ``gather`` mode in
-the step, the optimizer state's specs, the GNN's edge sharding) is the
-next slice's.
+same on every rank.
+
+A ``train`` kind with a mesh is JAX's GSPMD step written rank-locally:
+each rank holds its blocks of the parameters (a
+``sharding.ShardedParams``, or the LM's ``ShardedTransformer``) and of
+the optimizer state (``train.optimizer.opt_state_partition_specs``),
+takes its block of the batch, and after the step the gathered
+parameters, optimizer state and metrics are those of the same step
+without a mesh.  The step takes the model as it is (laid out on the
+first call, ``sharding.train_layout``: the rank keeps copies of its
+blocks and the model's split parameters are dropped) or as a previous
+step returned it, and returns the laid-out one; ``bundle.init_opt``
+gives the state's blocks.  Each replicated
+parameter's gradient is summed over the axes on which the ranks' work
+differs and its spec does not split (:func:`reduce_grads`):
+
+* recsys: the batch over the data axes, the tables row-sharded over
+  ``model`` (B3 forward and B3-bwd backward on each rank's rows), the
+  dense weights replicated; the loss is the global batch's mean;
+* LM: the TP / EP path of serving under autograd, FSDP ``gather`` mode,
+  the vocab-parallel cross-entropy (``layers.vocab_parallel_nll``) and
+  gold rank (``transformer.gold_rank_block``); ``fsdp`` and
+  ``opt_memory_efficient`` as in JAX.  MoE capacity comes from a data
+  shard's tokens, as in JAX;
+* GNN: n padded to a multiple of the data ranks and e of the mesh (JAX's
+  padding, masked); the edges split over the whole mesh, the nodes over
+  the data axes, and each data block's nodes further over ``model`` in
+  the step, so that no work is repeated on two ranks
+  (``gnn.gatedgcn_forward`` with the mesh); the weights are replicated and
+  their gradients summed over every axis.
 """
 
 from __future__ import annotations
@@ -82,15 +108,37 @@ def _slate_metrics(scores, rel) -> Dict[str, torch.Tensor]:
     return {k: agg[k] for k in ("ndcg_cut_10", "recip_rank", "success_10")}
 
 
-TRAIN_WITH_MESH = ("model-parallel training (FSDP gather mode in the "
-                   "train step, the optimizer state's partition specs, the "
-                   "GNN's edge sharding) is the next slice of the port; "
-                   "this one shards serving only")
+def reduce_grads(params, mesh, axes) -> Dict[str, torch.Tensor]:
+    """Every block's gradient of ``params`` (a ``ShardedParams``; zeros
+    where none reached it) summed over those of ``axes`` its spec does
+    not split: a replicated parameter's share from this rank's block of
+    the work, made whole."""
+    out = {}
+    for name, p in params.items():
+        g = p.grad if p.grad is not None else torch.zeros_like(p)
+        split = SH.split_axes(params.specs[name], mesh)
+        out[name] = spmd.psum(g, mesh, tuple(a for a in axes
+                                             if a not in split))
+    return out
 
 
-def _no_mesh_train(mesh):
-    if mesh is not None:
-        raise NotImplementedError(TRAIN_WITH_MESH)
+def _zero_grads(params) -> None:
+    for p in params.values():
+        p.grad = None
+
+
+def _rank_metrics(ranks, mask=None, mesh=None, axes=()):
+    """``streaming.rank_metrics`` of this rank's gold ranks, the sums and
+    counts summed over ``axes`` first."""
+    return streaming.rank_metrics(
+        ranks, mask, reduce=lambda t: spmd.psum(t, mesh, axes))
+
+
+def _sharded_adamw(ocfg, model, specs, mesh):
+    """AdamW on the blocks of ``model``'s parameters laid out by
+    ``specs``: ``(init, update)`` of the blocks."""
+    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    return opt_lib.adamw(ocfg, mesh, specs, shapes)
 
 
 def _slate_scores(kind, cfg, params, batch, cand):
@@ -203,34 +251,60 @@ def recsys_step_bundle(kind: str, cfg, shape: ShapeSpec, device=None,
                        mesh=None) -> StepBundle:
     """The ``train``, ``serve`` or ``retrieval`` step of ``kind`` at
     ``shape``, on ``device`` (default CUDA; raises without it), sharded
-    over ``mesh`` when given (serving kinds only)."""
+    over ``mesh`` when given."""
     if kind not in MODELS:
         raise ValueError(f"unknown recsys arch {kind!r}")
     dev = resolve_device(device)
     params = param_specs(kind, cfg)
     shd = _recsys_sharding(mesh)
 
-    def view(model, blocks=False):
+    def view(model, blocks=False, local=None):
         """The model as a sharded step reads it: its tables
-        vocab-parallel on the mesh."""
+        vocab-parallel on the mesh (``local``: trainable blocks)."""
         return rec_lib.shard_tables(model, kind, mesh, shd.model_axis,
-                                    blocks)
+                                    blocks, local)
 
     if shape.kind == "train":
-        _no_mesh_train(mesh)
         b = shape.get("batch")
-        init_opt, update = opt_lib.adamw(opt_lib.OptimizerConfig(lr=1e-3))
+        ocfg = opt_lib.OptimizerConfig(lr=1e-3)
+        init_opt, update = opt_lib.adamw(ocfg)
+        arg_specs = (params, _opt_specs(init_opt, params),
+                     _input_specs(kind, cfg, b))
+        if mesh is None:
+            def train_step(params, opt_state, batch):
+                params.zero_grad(set_to_none=True)
+                loss = rec_lib.loss_and_grad(kind, params, batch, cfg)
+                params, opt_state, info = update(_grads(params), opt_state,
+                                                 params)
+                return params, opt_state, {"loss": loss, **info}
+
+            return StepBundle(train_step, arg_specs, dev, init_opt=init_opt)
+
+        meta = MODELS[kind](cfg, device="meta")
+        specs = rec_lib.table_specs(meta, kind, shd.model_axis)
+        s_init, s_update = _sharded_adamw(ocfg, meta, specs, mesh)
+
+        def laid_out(model):
+            if isinstance(model, SH.ShardedParams):
+                return model
+            return SH.train_layout(model, specs, mesh)
 
         def train_step(params, opt_state, batch):
-            params.zero_grad(set_to_none=True)
-            loss = rec_lib.loss_and_grad(kind, params, batch, cfg)
-            params, opt_state, info = update(_grads(params), opt_state,
-                                             params)
-            return params, opt_state, {"loss": loss, **info}
+            sp = laid_out(params)
+            _zero_grads(sp)
+            loss = rec_lib.loss_and_grad(
+                kind, view(sp.module, local=sp),
+                _batch_block(batch, mesh, shd), cfg, mesh=mesh,
+                data_axes=shd.data_axes)
+            _, opt_state, info = s_update(
+                reduce_grads(sp, mesh, shd.data_axes), opt_state, sp)
+            return sp, opt_state, {"loss": loss, **info}
 
-        return StepBundle(train_step, (params, _opt_specs(init_opt, params),
-                                       _input_specs(kind, cfg, b)), dev,
-                          init_opt=init_opt)
+        def init(params):
+            return s_init(laid_out(params))
+
+        return StepBundle(train_step, arg_specs, dev, init_opt=init,
+                          mesh=mesh)
 
     if shape.kind == "serve":
         b = shape.get("batch")
@@ -349,6 +423,18 @@ def recsys_step_bundle(kind: str, cfg, shape: ShapeSpec, device=None,
 # ===========================================================================
 
 
+def lm_optimizer(opt_memory_efficient: bool = False
+                 ) -> opt_lib.OptimizerConfig:
+    """JAX's LM AdamW: lr 3e-4, 50 warm-up steps, cosine to 20,000;
+    bfloat16 m and factored v when ``opt_memory_efficient``."""
+    ocfg = opt_lib.OptimizerConfig(lr=3e-4, warmup_steps=50,
+                                   decay_steps=20_000)
+    if opt_memory_efficient:
+        ocfg = dataclasses.replace(ocfg, momentum_dtype="bfloat16",
+                                   factored_v=True)
+    return ocfg
+
+
 def lm_step_bundle(cfg: tfm.TransformerConfig, shape: ShapeSpec,
                    device=None, opt_memory_efficient: bool = False,
                    mesh=None, fsdp: bool = False) -> StepBundle:
@@ -358,10 +444,9 @@ def lm_step_bundle(cfg: tfm.TransformerConfig, shape: ShapeSpec,
     tokens instead of the weights, JAX's ``activation`` mode).
 
     * ``train``: ``step_fn(model, opt_state, {"tokens", "labels"})`` →
-      (model, opt_state, metrics): cross-entropy, JAX's LM AdamW (lr
-      3e-4, 50 warm-up steps, cosine to 20,000; bfloat16 m and factored
-      v when ``opt_memory_efficient``), and the gold
-      token's rank (``sorting.gold_rank`` on the detached logits) with
+      (model, opt_state, metrics): cross-entropy, JAX's LM AdamW
+      (:func:`lm_optimizer`), and the gold token's rank
+      (``sorting.gold_rank`` on the detached logits) with
       ``streaming.rank_metrics``.
     * ``prefill``: ``step_fn(model, tokens, max_seq=None)`` → (last
       logits, KV cache padded with zeros to ``max_seq`` slots, default
@@ -372,7 +457,10 @@ def lm_step_bundle(cfg: tfm.TransformerConfig, shape: ShapeSpec,
     With a mesh ``model`` may be a ``Transformer`` (laid out on each
     call) or ``transformer.shard_params``'s result; the logits and the
     cache are DTensors and the gold rank comes from the vocab-sharded
-    logits (``transformer.gold_rank_sharded``).
+    logits (``transformer.gold_rank_sharded``).  A sharded ``train`` step
+    lays the model out for training (``shard_params(..., train=True)``),
+    returns the ``ShardedTransformer`` it updated, and ``init_opt`` the
+    state's blocks.
     """
     dev = resolve_device(device)
     params = _module_specs(tfm.Transformer(cfg, device="meta"))
@@ -387,39 +475,69 @@ def lm_step_bundle(cfg: tfm.TransformerConfig, shape: ShapeSpec,
             moe_fsdp_mode="activation" if shape.kind == "decode"
             else "gather")
 
-    def laid_out(model):
+    def laid_out(model, train=False):
         if mesh is None or isinstance(model, tfm.ShardedTransformer):
             return model
-        return tfm.shard_params(model, mesh, shd)
+        return tfm.shard_params(model, mesh, shd, train)
 
     if shape.kind == "train":
-        _no_mesh_train(mesh)
-        ocfg = opt_lib.OptimizerConfig(lr=3e-4, warmup_steps=50,
-                                       decay_steps=20_000)
-        if opt_memory_efficient:
-            ocfg = dataclasses.replace(ocfg, momentum_dtype="bfloat16",
-                                       factored_v=True)
+        ocfg = lm_optimizer(opt_memory_efficient)
         init_opt, update = opt_lib.adamw(ocfg)
+        tokens = TensorSpec((b, s), I32)
+        arg_specs = (params, _opt_specs(init_opt, params),
+                     {"tokens": tokens, "labels": tokens})
+        if mesh is None:
+            def train_step(params, opt_state, batch):
+                params.zero_grad(set_to_none=True)
+                labels = batch["labels"]
+                with torch.enable_grad():
+                    logits = tfm.logits_train(params, batch["tokens"], cfg)
+                    loss = L.cross_entropy(logits, labels)
+                    ranks = sorting.gold_rank(logits.detach(), labels)
+                    del logits  # autograd keeps what it needs, not these
+                    loss.backward()
+                params, opt_state, info = update(_grads(params), opt_state,
+                                                 params)
+                metrics = {"loss": loss.detach(), **info,
+                           **streaming.rank_metrics(ranks.reshape(-1))}
+                return params, opt_state, metrics
+
+            return StepBundle(train_step, arg_specs, dev, init_opt=init_opt)
+
+        meta = tfm.Transformer(cfg, device="meta")
+        s_init, s_update = _sharded_adamw(
+            ocfg, meta, tfm.flat_partition_specs(cfg, shd), mesh)
+        v0 = tfm.vocab_block(cfg, mesh, shd)[0]
 
         def train_step(params, opt_state, batch):
-            params.zero_grad(set_to_none=True)
-            labels = batch["labels"]
+            st = laid_out(params, train=True)
+            _zero_grads(st.params)
+            labels = SH.local_input(batch["labels"], (shd.batch, None), mesh)
+            count = float(batch["labels"].numel())  # the global batch's
             with torch.enable_grad():
-                logits = tfm.logits_train(params, batch["tokens"], cfg)
-                loss = L.cross_entropy(logits, labels)
-                ranks = sorting.gold_rank(logits.detach(), labels)
-                del logits  # autograd keeps what it needs, not these
-                loss.backward()
-            params, opt_state, info = update(_grads(params), opt_state,
-                                             params)
-            metrics = {"loss": loss.detach(), **info,
-                       **streaming.rank_metrics(ranks.reshape(-1))}
-            return params, opt_state, metrics
+                logits = tfm.logits_train(st, batch["tokens"], cfg, mesh,
+                                          shd)
+                nll = L.vocab_parallel_nll(logits, labels, v0, mesh,
+                                           shd.model_axis)
+                part = torch.sum(nll) / count
+                ranks = tfm.gold_rank_block(logits.detach(), labels, v0,
+                                            mesh, shd.model_axis)
+                del logits, nll
+                part.backward()
+            _, opt_state, info = s_update(
+                reduce_grads(st.params, mesh, shd.data_axes), opt_state,
+                st.params)
+            metrics = {"loss": spmd.psum(part.detach(), mesh,
+                                         shd.data_axes), **info,
+                       **_rank_metrics(ranks.reshape(-1), None, mesh,
+                                       shd.data_axes)}
+            return st, opt_state, metrics
 
-        tokens = TensorSpec((b, s), I32)
-        return StepBundle(train_step, (params, _opt_specs(init_opt, params),
-                                       {"tokens": tokens, "labels": tokens}),
-                          dev, init_opt=init_opt)
+        def init(params):
+            return s_init(laid_out(params, train=True).params)
+
+        return StepBundle(train_step, arg_specs, dev, init_opt=init,
+                          mesh=mesh)
 
     if shape.kind == "prefill":
         @torch.inference_mode()
@@ -455,8 +573,10 @@ def lm_step_bundle(cfg: tfm.TransformerConfig, shape: ShapeSpec,
 # ===========================================================================
 
 
-def _gnn_input_specs(cfg: gnn_lib.GatedGCNConfig, shape: ShapeSpec):
-    n, e = shape.get("n_nodes"), shape.get("n_edges")
+def _gnn_input_specs(cfg: gnn_lib.GatedGCNConfig, shape: ShapeSpec,
+                     n=None, e=None):
+    n = n or shape.get("n_nodes")
+    e = e or shape.get("n_edges")
     out = {"node_feat": TensorSpec((n, cfg.d_in), F32),
            "edge_feat": TensorSpec((e, cfg.d_edge_in), F32),
            "src": TensorSpec((e,), I32), "dst": TensorSpec((e,), I32),
@@ -469,53 +589,143 @@ def _gnn_input_specs(cfg: gnn_lib.GatedGCNConfig, shape: ShapeSpec):
     return out
 
 
+def _pad_to(n: int, multiple: int) -> int:
+    return -(-n // multiple) * multiple
+
+
+_NODE_KEYS = ("node_feat", "labels", "node_mask", "graph_ids", "train_mask")
+_EDGE_KEYS = ("edge_feat", "src", "dst", "edge_mask")
+
+
+def pad_graph(batch, n: int, e: int):
+    """The batch with its node arrays padded to n rows and its edge arrays
+    to e (zeros, masks False: padded edges join node 0 with a zero gate,
+    padded nodes count nowhere), as JAX's sharded step expects them."""
+    out = dict(batch)
+    for keys, size in ((_NODE_KEYS, n), (_EDGE_KEYS, e)):
+        for k in keys:
+            if k in out and out[k].shape[0] < size:
+                x = out[k]
+                pad = x.new_zeros((size - x.shape[0],) + tuple(x.shape[1:]))
+                out[k] = torch.cat([x, pad])
+    return out
+
+
+def _node_blocks(batch, n: int, mesh, shd: SH.GNNSharding):
+    """This rank's node block and edge block of a padded batch: the node
+    arrays' data block (JAX's ``P(batch)``) cut again over ``model``
+    (each block padded to one size), the edge arrays' block of the whole
+    mesh, and ``src``/``dst`` renumbered into the blocks laid end to end
+    in rank order."""
+    n_data = spmd.axis_size(mesh, shd.data_axes)
+    m = spmd.axis_size(mesh, shd.model_axis)
+    r = spmd.axis_index(mesh, shd.model_axis)
+    nb = n // n_data
+    sub = -(-nb // m)
+    out = {}
+    for k in _NODE_KEYS:
+        if k in batch:
+            x = SH.local_input(batch[k], (shd.batch,), mesh)
+            lo, hi = min(r * sub, nb), min((r + 1) * sub, nb)
+            x = x[lo:hi]
+            if hi - lo < sub:
+                x = torch.cat([x, x.new_zeros((sub - (hi - lo),)
+                                              + tuple(x.shape[1:]))])
+            out[k] = x
+    espec = shd.edges()
+    for k in _EDGE_KEYS:
+        x = SH.local_input(batch[k], espec, mesh)
+        if k in ("src", "dst"):
+            g = x.long()
+            x = (g // nb) * (m * sub) + g % nb
+        out[k] = x
+    return out
+
+
 def gnn_step_bundle(cfg: gnn_lib.GatedGCNConfig, shape: ShapeSpec,
                     device=None, mesh=None) -> StepBundle:
     """GatedGCN's ``train`` step at ``shape`` on ``device`` (default CUDA;
     raises without it): the node task (cross-entropy over the masked
     nodes; a batch may carry a ``train_mask``) or the graph task (logits
     mean-pooled per graph), each with the gold class's rank
-    (``sorting.gold_rank``) and ``streaming.rank_metrics`` in the step."""
+    (``sorting.gold_rank``) and ``streaming.rank_metrics`` in the step.
+    With a ``mesh``: JAX's padding of n and e (the step pads a shorter
+    batch itself, :func:`pad_graph`), the batch's blocks by JAX's
+    in_shardings cut as :func:`_node_blocks` says, ``gnn.gatedgcn_forward``
+    on the blocks; the weights and the optimizer state stay replicated
+    (the step returns the model)."""
     if shape.kind != "train":
         raise ValueError(f"unsupported GNN shape kind {shape.kind}")
-    _no_mesh_train(mesh)
     dev = resolve_device(device)
     graph_task = shape.get("graph_task", False)
     params = _module_specs(gnn_lib.GatedGCN(cfg, device="meta"))
     init_opt, update = opt_lib.adamw(opt_lib.OptimizerConfig(lr=1e-3))
+    n_pad = e_pad = None
+    every = ()
+    if mesh is not None:
+        from repro_torch.launch.mesh import data_axes_of
+
+        shd = SH.GNNSharding(data_axes=data_axes_of(mesh))
+        every = tuple(mesh.mesh_dim_names)
+        n_data = spmd.axis_size(mesh, shd.data_axes)
+        n_ranks = spmd.axis_size(mesh, every)
+        n_pad = _pad_to(shape.get("n_nodes"), n_data)
+        e_pad = _pad_to(shape.get("n_edges"), n_ranks)
+
+    def forward(params, batch):
+        """(logits of the nodes this rank holds, its node arrays)."""
+        if mesh is not None:
+            n = _pad_to(batch["node_feat"].shape[0], n_data)
+            e = _pad_to(batch["src"].shape[0], n_ranks)
+            batch = _node_blocks(pad_graph(batch, n, e), n, mesh, shd)
+        return gnn_lib.gatedgcn_forward(params, batch, cfg, mesh,
+                                        every), batch
+
+    def total(x):
+        """The sum of each rank's share over the mesh."""
+        return spmd.psum(x, mesh, every)
+
+    def losses(params, batch):
+        """(loss of the whole batch, scores, labels, mask) for the ranks
+        of this rank's rows (every graph's with the graph task)."""
+        logits, nodes = forward(params, batch)
+        if graph_task:
+            # disjoint-union batch: mean-pool nodes per graph
+            n_graphs = shape.get("n_graphs")
+            node_mask = nodes["node_mask"]
+            gids = nodes["graph_ids"].long()
+            pooled = total(gnn_lib.segment_sum(
+                logits * node_mask[:, None], gids, n_graphs))
+            cnt = total(gnn_lib.segment_sum(node_mask.to(F32), gids,
+                                            n_graphs))
+            pooled = pooled / torch.clamp(cnt, min=1.0)[:, None]
+            labels = SH.full_tensor(batch["graph_labels"])
+            loss = L.cross_entropy(pooled, labels)
+            return loss, pooled, labels, torch.ones_like(labels, dtype=BOOL)
+        mask = nodes["node_mask"] & nodes.get("train_mask",
+                                              nodes["node_mask"])
+        labels = nodes["labels"]
+        m = mask.to(F32)
+        # L.cross_entropy's masked mean, its sums over the whole mesh
+        loss = total(torch.sum(L.token_nll(logits, labels) * m)) \
+            / torch.clamp(total(torch.sum(m)), min=1.0)
+        return loss, logits, labels, mask
 
     def train_step(params, opt_state, batch):
         params.zero_grad(set_to_none=True)
         with torch.enable_grad():
-            logits = gnn_lib.gatedgcn_forward(params, batch, cfg)
-            if graph_task:
-                # disjoint-union batch: mean-pool nodes per graph
-                n_graphs = shape.get("n_graphs")
-                node_mask = batch["node_mask"]
-                gids = batch["graph_ids"].long()
-                pooled = gnn_lib.segment_sum(
-                    logits * node_mask[:, None], gids, n_graphs)
-                cnt = gnn_lib.segment_sum(node_mask.to(F32), gids,
-                                          n_graphs)
-                pooled = pooled / torch.clamp(cnt, min=1.0)[:, None]
-                labels = batch["graph_labels"]
-                loss = L.cross_entropy(pooled, labels)
-                scores = pooled
-                mask = torch.ones_like(labels, dtype=BOOL)
-            else:
-                mask = batch["node_mask"] & batch.get("train_mask",
-                                                      batch["node_mask"])
-                labels = batch["labels"]
-                loss = L.cross_entropy(logits, labels, mask)
-                scores = logits
+            loss, scores, labels, mask = losses(params, batch)
             loss.backward()
         ranks = sorting.gold_rank(scores.detach(), labels)
-        params, opt_state, info = update(_grads(params), opt_state, params)
+        # every rank's work differs: each weight's share is summed
+        grads = {k: total(g) for k, g in _grads(params).items()}
+        params, opt_state, info = update(grads, opt_state, params)
         metrics = {"loss": loss.detach(), **info,
-                   **streaming.rank_metrics(ranks.reshape(-1),
-                                            mask.reshape(-1))}
+                   **_rank_metrics(ranks.reshape(-1), mask.reshape(-1),
+                                   mesh, () if graph_task else every)}
         return params, opt_state, metrics
 
     return StepBundle(train_step, (params, _opt_specs(init_opt, params),
-                                   _gnn_input_specs(cfg, shape)), dev,
-                      init_opt=init_opt)
+                                   _gnn_input_specs(cfg, shape, n_pad,
+                                                    e_pad)),
+                      dev, init_opt=init_opt, mesh=mesh)

@@ -20,6 +20,14 @@ and :func:`multi_hot_lookup_all` take such a table in place of a tensor;
 ``mean`` divides by the whole bag's count after the sum.  A zero weight
 times a non-finite row is NaN, so a lookup a rank does not hold reads a
 row of its bag that the rank does hold (see :meth:`VocabParallel.partial`).
+
+A trainable block (``local``: a leaf that requires grad, as
+``sharding.leaf_block`` makes) is looked up through
+``ops.embedding_bag_fixed_grad`` under autograd: B3 forward, B3-bwd on
+the rank's rows backward (a lookup it does not hold has mask 0 and adds
+nothing; a bag with none gets a zero gradient through the
+``torch.where``), and the sum over ``model`` passes the whole cotangent
+to each rank's partial sums (``spmd.psum``'s backward).
 """
 
 from __future__ import annotations
@@ -55,13 +63,14 @@ class VocabParallel:
     rank's partial rows and reduce-scatters the sums back."""
 
     def __init__(self, table: torch.Tensor, mesh, axis: str = "model",
-                 blocks: bool = False):
+                 blocks: bool = False, local: torch.Tensor | None = None):
         self.blocks = blocks
         spec = (axis, None)
         self.rows = table.shape[0]
         self.dim = table.shape[1]
         self.row0 = SH.local_bounds(table.shape, spec, mesh)[0][0]
-        self.local = SH.local_input(table, spec, mesh).detach()
+        self.local = (SH.local_input(table, spec, mesh).detach()
+                      if local is None else local)
         self.mesh, self.axis = mesh, axis
 
     @property
@@ -72,12 +81,16 @@ class VocabParallel:
     def device(self):
         return self.local.device
 
-    def partial(self, rows: torch.Tensor, mask=None) -> torch.Tensor:
-        """This rank's share of the bags ``rows [N, m]`` (global rows,
-        bool ``mask`` or all 1): B3 on the rows it holds, 0 elsewhere.
-        A lookup it does not hold reads the bag's first held row with
-        weight 0, so a non-finite row of the block reaches only the bags
-        that hold it; a bag with none is set to 0 after the kernel."""
+    def local_ids(self, rows: torch.Tensor, mask=None):
+        """B3's inputs for the bags ``rows [N, m]`` (global rows, bool
+        ``mask`` or all 1) on this block: (int32 ids into the block, the
+        lookups it holds as the mask, whether each bag holds one ``[N,
+        1]``).  A lookup it does not hold reads the bag's first held row
+        with weight 0, so a non-finite row of the block reaches only the
+        bags that hold it; in a bag with none held, the lookups read rows
+        spread over the block (the bag is set to 0 after the kernel), so
+        that B3-bwd, which walks the lookups of each row in turn, meets no
+        long run of one row."""
         n_loc = self.local.shape[0]
         hit = (rows >= self.row0) & (rows < self.row0 + n_loc)
         if mask is not None:
@@ -86,10 +99,21 @@ class VocabParallel:
         held = hit.any(-1, keepdim=True)
         first = torch.gather(local, -1, hit.to(torch.uint8).argmax(
             -1, keepdim=True))
-        fill = torch.where(held, first, torch.zeros_like(first))
+        spread = torch.arange(rows.numel(), device=rows.device).reshape(
+            rows.shape) % max(n_loc, 1)
+        fill = torch.where(held, first, spread)
         ids = torch.where(hit, local, fill).to(torch.int32)
-        out = ops.embedding_bag_fixed(self.local, ids.contiguous(),
-                                      hit.contiguous())
+        return ids.contiguous(), hit.contiguous(), held
+
+    def partial(self, rows: torch.Tensor, mask=None) -> torch.Tensor:
+        """This rank's share of the bags ``rows [N, m]`` (global rows,
+        bool ``mask`` or all 1): B3 on the rows it holds
+        (:meth:`local_ids`), 0 elsewhere."""
+        ids, hit, held = self.local_ids(rows, mask)
+        bag = (ops.embedding_bag_fixed_grad
+               if torch.is_grad_enabled() and self.local.requires_grad
+               else ops.embedding_bag_fixed)
+        out = bag(self.local, ids, hit)
         return torch.where(held, out, torch.zeros_like(out))
 
     def lookup(self, rows: torch.Tensor, mask=None) -> torch.Tensor:

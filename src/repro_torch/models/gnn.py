@@ -20,6 +20,13 @@ point at node 0 with zero gates.
 ``[L, D, 2D]`` (A, B packed), ``layers.w_edge`` ``[L, D, 3D]`` (E1, E2,
 E3 packed), ``head`` ``[D, n_classes]``; so ``models.convert`` carries
 JAX weights across by copying.
+
+:func:`gatedgcn_forward` with a mesh is the forward of a model-parallel
+train step (``launch.steps.gnn_step_bundle`` with a mesh): each rank
+holds a block of the nodes and a block of the edges, gathers every
+node's state over the mesh for its edges, and reduce-scatters its
+edges' sums back to the node blocks (the gather's and the
+reduce-scatter's backwards are each other, see ``distributed.spmd``).
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from torch import nn
 from torch.nn import Parameter as P
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import spmd
 from repro_torch.models import layers as L
 from repro_torch.models.scan_utils import scan_layers
 
@@ -82,28 +90,61 @@ def segment_sum(x, seg, n):
     return out.index_add(0, seg, x)
 
 
-def gatedgcn_forward(params: GatedGCN, batch, cfg: GatedGCNConfig):
+def _gathered(xs, mesh, axes):
+    """Every node's rows of each of ``xs`` (this rank's node block of
+    each), all-gathered over ``axes`` in one collective; ``xs`` itself
+    where no axis has more than one rank."""
+    if spmd.axis_size(mesh, axes) == 1:
+        return xs
+    every = spmd.all_gather(torch.cat(xs, -1), 0, mesh, axes)
+    return torch.split(every, [x.shape[-1] for x in xs], dim=-1)
+
+
+def _summed(xs, seg, n, mesh, axes):
+    """The segment sums ``[n, ...]`` of each of ``xs`` by ``seg``,
+    reduce-scattered over ``axes`` to this rank's node block in one
+    collective."""
+    if spmd.axis_size(mesh, axes) == 1:
+        return [segment_sum(x, seg, n) for x in xs]
+    sums = spmd.psum_scatter(segment_sum(torch.cat(xs, -1), seg, n), 0,
+                             mesh, axes)
+    return torch.split(sums, [x.shape[-1] for x in xs], dim=-1)
+
+
+def gatedgcn_forward(params: GatedGCN, batch, cfg: GatedGCNConfig,
+                     mesh=None, axes=()):
     """batch: node_feat ``[N, d_in]``, edge_feat ``[E, d_edge_in]``, src
     and dst ``[E]`` int, node_mask ``[N]`` and edge_mask ``[E]`` bool.
-    Returns per-node class logits ``[N, n_classes]``."""
+    Returns per-node class logits ``[N, n_classes]``.
+
+    With a ``mesh`` the batch is this rank's blocks: its node block
+    ``[n_loc, ...]`` (every rank's of one size, in rank order over
+    ``axes``, the first axis major) and its edges, whose ``src``/``dst``
+    index the nodes of every block laid end to end.  Each layer then
+    all-gathers the nodes' states (one collective), runs the rank's
+    edges, and reduce-scatters the gates' and messages' sums (one
+    collective) to the node blocks; the logits are those of the rank's
+    nodes ``[n_loc, n_classes]``."""
     dt = cfg.torch_dtype
     h = batch["node_feat"].to(dt) @ params.proj_node
     e = batch["edge_feat"].to(dt) @ params.proj_edge
     src, dst = batch["src"].long(), batch["dst"].long()
     emask = batch["edge_mask"][:, None].to(h.dtype)
-    n, d = h.shape
+    n_loc, d = h.shape
+    n = n_loc * spmd.axis_size(mesh, axes)
 
     def body(carry, lp):
         h, e = carry
         a_h, b_h = torch.split(h @ lp["w_node"], d, dim=-1)  # [N, D] each
+        h_all, b_all = _gathered((h, b_h), mesh, axes)
         # edge gate logits: E1·e + E2·h_src + E3·h_dst (packed weights)
         e1, e2, e3 = torch.split(lp["w_edge"], d, dim=-1)
-        eg = (e @ e1 + torch.index_select(h, 0, src) @ e2
-              + torch.index_select(h, 0, dst) @ e3)
+        eg = (e @ e1 + torch.index_select(h_all, 0, src) @ e2
+              + torch.index_select(h_all, 0, dst) @ e3)
         sig = torch.sigmoid(eg) * emask
-        denom = segment_sum(sig, dst, n) + 1e-6
-        msg = sig * torch.index_select(b_h, 0, src)
-        agg = segment_sum(msg, dst, n) / denom
+        msg = sig * torch.index_select(b_all, 0, src)
+        denom, agg = _summed((sig, msg), dst, n, mesh, axes)
+        agg = agg / (denom + 1e-6)
         h_new = h + torch.relu(L.nonparam_layernorm(a_h + agg))
         e_new = e + torch.relu(L.nonparam_layernorm(eg))
         return h_new, e_new

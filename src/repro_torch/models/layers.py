@@ -10,6 +10,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import spmd
+
 F32 = torch.float32
 
 
@@ -93,16 +95,48 @@ def softmax_fp32(logits: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return torch.softmax(logits.to(F32), dim=dim)
 
 
+def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-position cross-entropy ``[...]``: log-sum-exp of the float32
+    logits ``[..., V]`` less the gold logit."""
+    logits = logits.to(torch.float32)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.logsumexp(logits, dim=-1) - gold
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   label_mask: torch.Tensor | None = None) -> torch.Tensor:
     """Mean cross-entropy over valid positions; logits ``[..., V]``
     (log-sum-exp in float32), labels ``[...]`` int, ``label_mask``
     ``[...]`` bool (the mean is over its True entries, at least 1)."""
-    logits = logits.to(torch.float32)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = logz - gold
+    nll = token_nll(logits, labels)
     if label_mask is None:
         return torch.mean(nll)
     m = label_mask.to(torch.float32)
     return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
+
+
+def vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor, v0: int,
+                       mesh, axis: str) -> torch.Tensor:
+    """Per-position cross-entropy ``[...]`` of logits whose vocabulary is
+    split over ``axis``: this rank holds columns ``[v0, v0 + V_loc)``
+    (``logits [..., V_loc]``).  In float32: the row max is the max over
+    ``axis`` of each rank's (a constant to autograd), the exp-sums are
+    summed over ``axis``, and the gold logit comes from the rank that
+    holds it (summed over ``axis``, each rank's zero elsewhere), so its
+    gradient reaches that rank's column only.  With one rank on ``axis``
+    this is :func:`token_nll`, op for op."""
+    if spmd.axis_size(mesh, axis) == 1:
+        return token_nll(logits, labels)
+    lf = logits.to(torch.float32)
+    top = (lf.detach().amax(-1, keepdim=True) if lf.shape[-1] else
+           lf.new_full(lf.shape[:-1] + (1,), float("-inf")))
+    top = spmd.psum(top, mesh, axis, op="max")
+    logz = top[..., 0] + torch.log(spmd.psum(
+        torch.sum(torch.exp(lf - top), dim=-1), mesh, axis))
+    lab = labels.long()
+    mine = (lab >= v0) & (lab < v0 + lf.shape[-1])
+    at = torch.where(mine, lab - v0, torch.zeros_like(lab))
+    gold = torch.gather(lf, -1, at[..., None])[..., 0]
+    gold = spmd.psum(torch.where(mine, gold, torch.zeros_like(gold)), mesh,
+                     axis)
+    return logz - gold

@@ -29,6 +29,13 @@ reduce-scatters the outputs back.  Capacity comes from the tokens a
 rank routes (its data shard's, or the gathered ones in ``activation``
 mode), as in JAX, so with more than one data rank the sharded block is
 JAX's ``moe_apply_local`` on each data shard, not the unsharded block.
+
+Under autograd (training, ``gather`` mode as JAX trains) the weights'
+all-gather over the FSDP axis reduce-scatters their gradients back to
+the blocks, the sum over ``model`` passes the cotangent through, and the
+replicated router enters each rank's experts through ``spmd.fan_out``
+(its gradient summed over ``model``; the tokens' is summed by the
+caller, ``transformer._ffn_sharded``).
 """
 
 from __future__ import annotations
@@ -131,8 +138,9 @@ def moe_apply_local(x2d: torch.Tensor, params: dict, cfg: MoEConfig, *,
         x2d = spmd.all_gather(x2d, 0, mesh, fsdp_axis)
     e_loc = w_gate.shape[0]
     first = spmd.axis_index(mesh, model_axis) * e_loc
-    gate_vals, tok_idx = route_experts(x2d, params["router"], cfg, first,
-                                       e_loc)
+    # each rank's gradient reaches the router through its experts only
+    router = spmd.fan_out(params["router"], mesh, model_axis)
+    gate_vals, tok_idx = route_experts(x2d, router, cfg, first, e_loc)
     out = _expert_ffn(x2d, w_gate, w_up, w_down, gate_vals, tok_idx)
     if activation:
         # partial over the F blocks: summed and re-sharded in one step

@@ -40,6 +40,7 @@ from torch import nn
 from torch.nn import Parameter as P
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import spmd
 from repro_torch.models import embedding as E
 from repro_torch.models import layers as L
 
@@ -108,17 +109,32 @@ SHARDED_TABLES = {"sasrec": ("item_emb",), "mind": ("item_emb",),
 
 
 def shard_tables(model: nn.Module, kind: str, mesh, axis: str = "model",
-                 blocks: bool = False) -> TableView:
+                 blocks: bool = False, local=None) -> TableView:
     """``model`` with its tables row-sharded over ``axis`` (each rank
     keeps a view of its block; nothing is copied).  ``blocks``: each
     rank's lookups are its own block of a list split over ``axis`` (see
-    ``E.VocabParallel``)."""
+    ``E.VocabParallel``).  ``local``: ``{name: block}``, the trainable
+    blocks to use in place of views (a ``sharding.ShardedParams``; the
+    model's own tables may then be ``meta``: only their shapes are
+    read)."""
     tables = {}
     for name in SHARDED_TABLES[kind]:
         t = getattr(model, name)
-        tables[name] = E.VocabParallel(t[:, None] if t.dim() == 1 else t,
-                                       mesh, axis, blocks)
+        block = None if local is None else local[name]
+        if t.dim() == 1:
+            t = t[:, None]
+            block = None if block is None else block[:, None]
+        tables[name] = E.VocabParallel(t, mesh, axis, blocks, block)
     return TableView(model, tables)
+
+
+def table_specs(model: nn.Module, kind: str, axis: str = "model"):
+    """JAX's parameter specs of a sharded recsys step: each table of
+    :data:`SHARDED_TABLES` split by rows over ``axis``, the rest
+    replicated."""
+    return {n: ((axis,) + (None,) * (p.dim() - 1)
+                if n in SHARDED_TABLES[kind] else ())
+            for n, p in model.named_parameters()}
 
 
 # ===========================================================================
@@ -634,7 +650,8 @@ def train_chunk_rows(kind: str, cfg) -> int:
 
 
 def loss_and_grad(kind: str, params: nn.Module, batch, cfg,
-                  rows: int | None = None) -> torch.Tensor:
+                  rows: int | None = None, mesh=None,
+                  data_axes=()) -> torch.Tensor:
     """The batch-mean training loss of ``kind`` (a detached 0-d tensor),
     its gradient added into every parameter's ``.grad``.
 
@@ -647,6 +664,13 @@ def loss_and_grad(kind: str, params: nn.Module, batch, cfg,
     launch for every multi-hot field).  The gradient is JAX's
     ``value_and_grad`` of the batch mean, summed in another order.  No
     value is read back to the host.
+
+    With ``mesh`` (a sharded train step): ``params`` is the model with
+    its tables vocab-parallel (:func:`shard_tables`'s view of trainable
+    blocks) and ``batch`` this rank's block of rows over ``data_axes``;
+    the denominator and the returned loss are summed over them, so the
+    loss is the global batch's mean and each gradient this rank's share
+    of it (the step sums the replicated ones over ``data_axes``).
     """
     parts = TRAIN_PARTS[kind]
     n = next(iter(batch.values())).shape[0]
@@ -654,19 +678,21 @@ def loss_and_grad(kind: str, params: nn.Module, batch, cfg,
     with torch.enable_grad():
         front = parts.front(params, batch, cfg)
         denom = parts.denominator(batch)
+        if mesh is not None:
+            denom = spmd.psum(denom, mesh, data_axes)
         leaf_grads = {k: [] for k in front}
-        loss = None
+        loss = torch.zeros((), dtype=torch.float32, device=denom.device)
         for s in range(0, n, rows):
             leaves = {k: v[s:s + rows].detach().requires_grad_()
                       for k, v in front.items()}
             sub = {k: v[s:s + rows] for k, v in batch.items()}
             part = parts.loss_sum(params, leaves, sub, cfg) / denom
             part.backward()
-            loss = part.detach() if loss is None else loss + part.detach()
+            loss = loss + part.detach()
             for k, v in leaves.items():
                 leaf_grads[k].append(v.grad)
             del leaves, part
         torch.autograd.backward(
             list(front.values()),
             [torch.cat(leaf_grads.pop(k)) for k in list(front)])
-    return loss
+    return loss if mesh is None else spmd.psum(loss, mesh, data_axes)

@@ -56,9 +56,20 @@ collectives (``distributed.spmd``), as JAX's ``shard_map`` bodies would:
 They return what the unsharded functions return, as DTensors laid out
 as JAX's ``out_shardings``: the logits ``(batch, model)`` and the cache
 by ``cache_partition_specs`` (``sharding.full_tensor`` gives the unsharded
-values).  Training with a mesh (FSDP ``gather`` mode in the step, the
-optimizer state's specs) is the next slice's; ``logits_train`` runs on
-one device.
+values).
+
+Model-parallel training.  ``logits_train`` with ``mesh``/``shd`` runs
+the same layers under autograd on the blocks of a
+:class:`ShardedTransformer` (``shard_params(..., train=True)``: leaf
+tensors of the rank's own) and returns this rank's block of the logits
+(its rows, its vocabulary columns).  Each collective has its transpose
+as backward (``distributed.spmd``): a replicated activation entering a
+column-parallel product, the experts or the vocabulary columns passes
+through ``spmd.fan_out`` (its gradient summed over ``model``), each sum
+over ``model`` passes the cotangent through, the regroups' all-gathers
+reduce-scatter it, and MoE's FSDP ``gather`` of the expert weights
+reduce-scatters their gradients over the data axis.  Tied embeddings get
+the lookup's and the head's gradients in one block.
 """
 
 from __future__ import annotations
@@ -266,9 +277,16 @@ def _positions(b, s, device):
 
 
 def logits_train(params: Transformer, tokens: torch.Tensor,
-                 cfg: TransformerConfig) -> torch.Tensor:
+                 cfg: TransformerConfig, mesh=None,
+                 shd: Optional[SH.LMSharding] = None) -> torch.Tensor:
     """Full forward for training: tokens ``[B, S]`` → logits
-    ``[B, S, V]``."""
+    ``[B, S, V]``.  With ``mesh`` and ``shd``: ``params`` a
+    :class:`ShardedTransformer`, ``tokens`` the full batch (or a
+    DTensor); returns this rank's block of the logits ``[B_loc, S,
+    V_loc]`` (``shd.logits()``: its data shard's rows, its columns
+    :func:`vocab_block` of the vocabulary)."""
+    if mesh is not None:
+        return _logits_train_sharded(params, tokens, cfg, mesh, shd)
     b, s = tokens.shape
     x = params.embed[tokens.long()]
     positions = _positions(b, s, tokens.device)
@@ -407,47 +425,58 @@ def cache_partition_specs(cfg: TransformerConfig, shd: SH.LMSharding):
     return {"k": spec, "v": spec}
 
 
+def flat_partition_specs(cfg: TransformerConfig, shd: SH.LMSharding):
+    """:func:`param_partition_specs` keyed by the parameters' dotted
+    names (``layers.wq``)."""
+    out = {}
+    for top, spec in param_partition_specs(cfg, shd).items():
+        if isinstance(spec, dict):
+            out.update({f"{top}.{k}": v for k, v in spec.items()})
+        else:
+            out[top] = spec
+    return out
+
+
 class ShardedTransformer:
     """A :class:`Transformer`'s parameters laid out on a mesh by
-    :func:`param_partition_specs`: ``embed``, ``layers[name]``,
-    ``final_norm``, ``lm_head`` are DTensors (each rank holds a view of
-    its block); ``local(name)`` gives a rank's block."""
+    :func:`param_partition_specs`: ``params`` (a
+    ``sharding.ShardedParams``) maps each name to this rank's block, the
+    tensor a train step differentiates and updates in place;
+    ``embed``, ``layers[name]``, ``final_norm`` and ``lm_head`` are those
+    blocks."""
 
     def __init__(self, cfg: TransformerConfig, mesh, shd: SH.LMSharding,
-                 tensors: dict):
-        self.cfg, self.mesh, self.shd = cfg, mesh, shd
-        self.embed = tensors["embed"]
-        self.layers = tensors["layers"]
-        self.final_norm = tensors.get("final_norm")
-        self.lm_head = tensors.get("lm_head")
+                 params: SH.ShardedParams):
+        self.cfg, self.mesh, self.shd, self.params = cfg, mesh, shd, params
+        self.embed = params["embed"]
+        self.layers = {k[len("layers."):]: v for k, v in params.items()
+                       if k.startswith("layers.")}
+        self.final_norm = params.get("final_norm")
+        self.lm_head = params.get("lm_head")
 
     def local_layers(self) -> dict:
-        return {k: SH.local(v) for k, v in self.layers.items()}
+        return dict(self.layers)
 
     def local_head(self) -> torch.Tensor:
         if self.cfg.tie_embeddings:
-            return SH.local(self.embed).T
-        return SH.local(self.lm_head)
+            return self.embed.T
+        return self.lm_head
 
     def out_norm(self, x: torch.Tensor) -> torch.Tensor:
-        scale = None if self.final_norm is None else SH.local(
-            self.final_norm)
-        return L.norm(x, scale)
+        return L.norm(x, self.final_norm)
 
 
-def shard_params(model: Transformer, mesh, shd: SH.LMSharding
-                 ) -> ShardedTransformer:
-    """``model`` laid out on ``mesh`` by ``shd``'s specs (every rank holds
-    the same full model; nothing is copied or communicated)."""
-    specs = param_partition_specs(model.cfg, shd)
-    tensors = {"embed": SH.to_dtensor(model.embed, specs["embed"], mesh),
-               "layers": {k: SH.to_dtensor(v, specs["layers"][k], mesh)
-                          for k, v in model.layers.items()}}
-    for name in ("final_norm", "lm_head"):
-        if name in specs:
-            tensors[name] = SH.to_dtensor(getattr(model, name), specs[name],
-                                          mesh)
-    return ShardedTransformer(model.cfg, mesh, shd, tensors)
+def shard_params(model: Transformer, mesh, shd: SH.LMSharding,
+                 train: bool = False) -> ShardedTransformer:
+    """``model`` laid out on ``mesh`` by ``shd``'s specs, with nothing
+    communicated: for serving each block is a view of the model's
+    parameter (every rank keeps the whole model); with ``train`` the
+    blocks are the rank's own (``sharding.train_layout``: the model's
+    split parameters are dropped), leaves under autograd."""
+    specs = flat_partition_specs(model.cfg, shd)
+    params = (SH.train_layout(model, specs, mesh) if train else
+              SH.ShardedParams(model, specs, mesh))
+    return ShardedTransformer(model.cfg, mesh, shd, params)
 
 
 class _TP:
@@ -491,6 +520,7 @@ def _qkv_sharded(tp: _TP, x, lp, positions, q_heads):
     h1)`` and k, v of every KV head ``[b, s, KV, hd]``, q and k roped,
     from the column blocks of ``x @ w``."""
     cfg = tp.cfg
+    x = spmd.fan_out(x, tp.mesh, tp.ax)
     b, s, _ = x.shape
     hd, h, kv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     h0, h1 = q_heads(tp.r)
@@ -530,6 +560,7 @@ def _out_proj(tp: _TP, att, wo_loc, have):
 
 def _ffn_sharded(tp: _TP, x, lp):
     cfg, shd = tp.cfg, tp.shd
+    x = spmd.fan_out(x, tp.mesh, tp.ax)
     if cfg.moe is None:
         return tp.psum(_dense_ffn(x, lp, cfg))
     out = moe_lib.moe_apply(
@@ -648,6 +679,52 @@ def _decode_sharded(params: ShardedTransformer, cache, token, pos, cfg,
     return _logits_out(tp, params, x, token.shape[0]), cache
 
 
+def vocab_block(cfg: TransformerConfig, mesh, shd: SH.LMSharding):
+    """``[v0, v1)``: the vocabulary columns this rank's logits hold."""
+    return SH.chunk_bounds(cfg.vocab_size, spmd.axis_size(
+        mesh, shd.model_axis), spmd.axis_index(mesh, shd.model_axis))
+
+
+def _logits_train_sharded(params: ShardedTransformer, tokens, cfg, mesh,
+                          shd):
+    tp = _TP(cfg, mesh, shd)
+    tok = SH.local_input(tokens, (shd.batch, None), mesh)
+    b, s = tok.shape
+    x = _embed_sharded(tp, params.embed, tok)
+    positions = _positions(b, s, tok.device)
+    hd = cfg.head_dim
+
+    def body(xc, lp):
+        xn = L.norm(xc, lp.get("attn_norm"))
+        q, k, v = _qkv_sharded(tp, xn, lp, positions, tp.heads)
+        att = _attend_heads(tp, q, k, v, xc.dtype)
+        xc = xc + _out_proj(tp, att, lp["wo"],
+                            lambda r: tuple(i * hd for i in tp.heads(r)))
+        return xc + _ffn_sharded(tp, L.norm(xc, lp.get("ffn_norm")), lp)
+
+    x = scan_layers(body, x, params.local_layers(), cfg.remat)
+    x = spmd.fan_out(params.out_norm(x), mesh, tp.ax)
+    return x @ params.local_head()
+
+
+def gold_rank_block(loc, gold, v0: int, mesh, axis: str):
+    """``core.sorting.gold_rank`` of the logits whose vocabulary columns
+    ``[v0, v0 + V_loc)`` this rank holds (``loc [..., V_loc]``) for its
+    rows' ``gold [...]``: the gold logit summed over ``axis`` from the
+    rank that holds it, each rank's count of the logits above it, the
+    counts summed over ``axis``; int32 ``[...]``."""
+    g = gold.long()
+    mine = (g >= v0) & (g < v0 + loc.shape[-1])
+    at = torch.where(mine, g - v0, torch.zeros_like(g))[..., None]
+    gold_score = spmd.psum(torch.where(mine[..., None], torch.gather(
+        loc, -1, at), torch.zeros_like(loc[..., :1])), mesh, axis)
+    index = torch.arange(loc.shape[-1], device=loc.device) + v0
+    above = (loc > gold_score) | ((loc == gold_score) & (index < g[..., None]))
+    count = spmd.psum(torch.sum(above, dim=-1, dtype=torch.int32), mesh,
+                      axis)
+    return count + 1
+
+
 def gold_rank_sharded(logits, gold, mesh, shd: SH.LMSharding):
     """``core.sorting.gold_rank`` of vocab-sharded ``logits`` (a DTensor
     ``[B, V]``, ``(batch, model)``): the gold logit summed over ``model``
@@ -655,16 +732,9 @@ def gold_rank_sharded(logits, gold, mesh, shd: SH.LMSharding):
     it, the counts summed over ``model``; int32 ``[B]`` for every row,
     gathered over the data axes."""
     loc = SH.local(logits)
-    g = SH.local_input(gold, (shd.batch,), mesh).long()
+    g = SH.local_input(gold, (shd.batch,), mesh)
     v0 = SH.local_bounds(logits.shape, (shd.batch, shd.model_axis),
                          mesh)[1][0]
-    mine = (g >= v0) & (g < v0 + loc.shape[1])
-    at = torch.where(mine, g - v0, torch.zeros_like(g))[:, None]
-    gold_score = spmd.psum(torch.where(mine[:, None], torch.gather(
-        loc, 1, at), torch.zeros_like(loc[:, :1])), mesh, shd.model_axis)
-    index = torch.arange(loc.shape[1], device=loc.device) + v0
-    above = (loc > gold_score) | ((loc == gold_score)
-                                  & (index[None] < g[:, None]))
-    count = spmd.psum(torch.sum(above, dim=-1, dtype=torch.int32), mesh,
-                      shd.model_axis)
-    return spmd.all_gather(count + 1, 0, mesh, shd.data_axes)
+    return spmd.all_gather(gold_rank_block(loc, g, v0, mesh,
+                                           shd.model_axis),
+                           0, mesh, shd.data_axes)

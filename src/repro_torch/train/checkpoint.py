@@ -25,6 +25,16 @@ cannot read bfloat16 leaves back: numpy has no cast from ``|V2``.)
 ``AsyncCheckpointer`` copies the tree to host memory synchronously and
 writes it on a background thread; an error there is raised by the next
 ``wait`` or ``save``.
+
+Sharded state (a model-parallel train step's).  A leaf may be a DTensor
+and a tree may hold a ``sharding.ShardedParams`` (its blocks, as
+DTensors); ``optimizer.state_dtensors`` lays out an optimizer state so.
+Every rank calls :func:`save` (or ``AsyncCheckpointer.save``): each
+DTensor is gathered into its logical array (``sharding.full_tensor``,
+JAX's layout) and rank 0 of the default group writes.  :func:`restore`
+into such a target cuts each stored array by the target's own mesh and
+spec (``sharding.local_shard``), so a state saved under one mesh
+restores under any other, or under none.
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.distributed import sharding as SH
 from repro_torch.train.optimizer import leaf_order
 
 _BF16_BITS = np.dtype("V2")
@@ -51,6 +62,8 @@ def _named_leaves(tree, path: str = "") -> List[Tuple[str, Any]]:
 
     if isinstance(tree, nn.Module):
         tree = dict(tree.named_parameters())
+    if isinstance(tree, SH.ShardedParams):
+        tree = tree.dtensors()
     if isinstance(tree, Mapping):
         return [pair for k in leaf_order(tree)
                 for pair in _named_leaves(tree[k], join(k))]
@@ -62,7 +75,7 @@ def _named_leaves(tree, path: str = "") -> List[Tuple[str, Any]]:
 
 def _to_numpy(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
-        x = x.detach().cpu()
+        x = SH.full_tensor(x).detach().cpu()
         if x.dtype == torch.bfloat16:
             return x.view(torch.int16).numpy().view(_BF16_BITS)
         return x.numpy()
@@ -76,7 +89,7 @@ def _from_numpy(arr: np.ndarray, ref) -> torch.Tensor:
         t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(arr)
-    dev = getattr(ref, "device", None)
+    dev = getattr(SH.local(ref), "device", None)
     if dev is None or dev.type == "meta":
         dev = torch.device("cpu")
     return t.to(device=dev, dtype=ref.dtype)
@@ -108,9 +121,27 @@ def _write(ckpt_dir: str, step: int, flat, extra: Optional[dict]) -> str:
     return final
 
 
+def _writer() -> bool:
+    """Whether this process writes: rank 0 of the default group, or the
+    only process."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def save(ckpt_dir: str, step: int, tree, extra: Optional[dict] = None) -> str:
-    """Synchronous atomic save.  Returns the committed directory."""
-    return _write(ckpt_dir, step, _snapshot(tree), extra)
+    """Synchronous atomic save.  Returns the committed directory.  Under a
+    process group every rank calls it (each DTensor is gathered); rank 0
+    writes, and every rank returns once it has."""
+    flat = _snapshot(tree)
+    path = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if _writer():
+        path = _write(ckpt_dir, step, flat, extra)
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.barrier()
+    return path
 
 
 def _committed_steps(ckpt_dir: str) -> List[int]:
@@ -136,6 +167,17 @@ def _rebuild(tree, path: str, flat: dict):
             for n, p in tree.named_parameters():
                 p.copy_(flat[join(n)])
         return tree
+    if isinstance(tree, SH.ShardedParams):  # into its blocks
+        with torch.no_grad():
+            for n, p in tree.items():
+                p.copy_(SH.local_shard(flat[join(n)], tree.specs[n],
+                                       tree.mesh))
+        return tree
+    if hasattr(tree, "to_local"):  # a DTensor: this rank's block of it
+        spec = SH.spec_of(tree)
+        block = SH.local_shard(flat[path], spec, tree.device_mesh)
+        return SH.from_local(block.contiguous(), spec, tree.device_mesh,
+                             tree.shape)
     if isinstance(tree, Mapping):
         return {k: _rebuild(v, join(k), flat) for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
@@ -199,8 +241,12 @@ class AsyncCheckpointer:
             raise err
 
     def save(self, step: int, tree, extra: Optional[dict] = None) -> None:
+        """Under a process group every rank calls it (each DTensor is
+        gathered); rank 0 alone writes and keeps ``last_committed``."""
         self.wait()  # one in-flight save at a time
         flat = _snapshot(tree)
+        if not _writer():
+            return
 
         def _persist():
             try:

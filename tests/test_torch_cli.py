@@ -124,7 +124,8 @@ def test_python_dash_m_repro_torch_runs_without_jax(tmp_path):
     -m repro_torch.dev sharded-smoke``, ``python -m
     repro_torch.analysis.roofline --help``, ``python -m
     repro_torch.distributed.collectives`` on a one-rank gloo group, and
-    ``python -m repro_torch.launch.dryrun --help``; ``distributed.sharding``,
+    ``python -m repro_torch.launch.dryrun --help`` and ``python -m
+    repro_torch.launch.sharded_train --help``; ``distributed.sharding``,
     ``launch.mesh`` and ``launch.dryrun`` import without it."""
     code = (
         "import runpy, sys\n"
@@ -241,7 +242,10 @@ def test_python_dash_m_repro_torch_runs_without_jax(tmp_path):
             # the eleventh slice's: the dry run's --help (its import pulls
             # in the sharding rules and the mesh)
             ("repro_torch.launch.dryrun", ["--help"],
-             "usage: python -m repro_torch.launch.dryrun")):
+             "usage: python -m repro_torch.launch.dryrun"),
+            # the twelfth slice's: the sharded-train self-check's --help
+            ("repro_torch.launch.sharded_train", ["--help"],
+             "usage: python -m repro_torch.launch.sharded_train")):
         code = _without_jax(module, argv) + (
             "bad = [m for m in sys.modules if m == 'repro' "
             "or m.startswith(('repro.', 'jax.', 'jaxlib'))]\n"
