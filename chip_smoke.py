@@ -225,14 +225,20 @@ points a user calls:
   (``[4,096, 1,024]``), B2 at ``[1,024, 65,536]`` (phase C)
   and ``[1, 10^6]`` (phase E), B3's all-fields call at the ``serve_bulk``
   batch (phase E), with its general sort-and-CSR wrapper at one field's
-  bags beside it, B3-bwd at phase T's train_batch bags (the backward
-  of ``F.embedding_bag`` timed beside it), and phase P's shards: B2 on
+  bags beside it, B3-bwd at phase T's train_batch bags (the op, its
+  grouping and its kernel apart, the gradient's zero fill as a
+  yardstick, the backward of ``F.embedding_bag`` timed beside
+  it, the heaviest slab and the longest run), and phase P's shards: B2 on
   one of two candidate blocks (``[1, 500,000]``), B2's merge of the two
   blocks' top 1,000 (``[1, 2,000]``, equal to one B2 over the row) and
   B3 on one of two row shards of the xDeepFM table at the serve_bulk
   bags; and phase Q's: B3 and B3-bwd on one of two row shards of the
-  table at train_batch's bags (``F.embedding_bag`` and its backward on
-  the half table timed beside them).
+  table at train_batch's bags, and B3-bwd at Q2's two other launches on
+  that shard, the fields (one Zipf id a bag) and the linear term (E = 1,
+  39 lookups a bag), each bit for bit the CPU plain version, equal on two
+  launches and within the summation-order limit of its atomic plain
+  version (``F.embedding_bag`` and its backward on the half table timed
+  beside them).
 
 Every phase prints one JSON line; any failure raises and exits non-zero.
 The last lines are the card's ``nvidia-smi`` name and power limit and
@@ -2886,6 +2892,7 @@ def phase_train(device, seed):
             keep["xdeepfm_launches"] = res["launches"]
             result["b3_backward"], keep["b3_backward"] = b3_backward_check(
                 xd, seed, device)
+            keep["xdeepfm"] = xd
         torch.cuda.empty_cache()
     for shape_name in GNN_SHAPES:
         t0 = time.perf_counter()
@@ -2905,14 +2912,65 @@ def phase_train(device, seed):
     return result, keep
 
 
-def embedding_bag_backward_row(args, launches, err):
-    """B3-bwd at phase T's train_batch inputs (its checks ran there):
-    times of the wrapper (sort, zero gradient, one launch), of the launch
-    with its zero fill on sorted inputs, of the zero fill alone, of the
-    plain version on the card and of the backward of
+B3_BWD_REPLACES = ("none: port-only (the JAX package trains without its "
+                   "Pallas kernel, src/repro/models/embedding.py:50-73)")
+
+
+def b3_bwd_shape(args):
+    """Of B3-bwd's inputs: the kernel's slab rows, the heaviest slab's
+    lookups, the lookups of the longest run (one row), of
+    the longest run of mask-1 lookups, and the slabs any lookup reaches."""
+    import torch
+
+    from repro_torch.kernels import embedding_bag as EB
+
+    grad, ids, mask, v, f, field_rows = args
+    keys = EB._rows32(ids, f, field_rows).reshape(-1).long()
+    r = EB.slab_rows(grad.shape[1])
+    slabs = torch.bincount(keys // r)
+    runs = torch.bincount(keys)
+    held = torch.bincount(keys[mask.reshape(-1)]) if mask is not None \
+        else runs
+    return {"slab_rows": r, "slabs": -(-v // r),
+            "slabs_reached": int((slabs > 0).sum()),
+            "heaviest_slab_lookups": int(slabs.max()),
+            "longest_run": int(runs.max()),
+            "longest_run_mask_1": int(held.max()) if held.numel() else 0}
+
+
+def b3_bwd_order_check(args, got, plain):
+    """B3-bwd against its atomic plain version on the card where a row
+    sums many terms: two orders of n terms each lie within (n - 1)·2^-24
+    of the sum of their magnitudes from the exact sum, so they differ by
+    at most 2·(n - 1)·2^-24·sum|x|, entry by entry.  Returns the largest
+    difference over that limit (<= 1 passes)."""
+    import torch
+
+    from repro_torch.kernels import embedding_bag as EB
+
+    grad, ids, mask, v, f, field_rows = args
+    rows = EB._fixed_rows(ids, f, field_rows).reshape(-1)
+    n = torch.bincount(rows, minlength=v).to(torch.float32)
+    mag = EB.embedding_bag_fixed_backward_plain(grad.abs(), ids, mask, v, f,
+                                                field_rows)
+    limit = 2.0 * (n - 1).clamp(min=0)[:, None] * 2.0**-24 * mag
+    over = (got - plain).abs() / limit.clamp(min=1e-38)
+    check(bool(((got - plain).abs() <= limit).all()),
+          f"B3-bwd beyond the summation-order limit from its plain version "
+          f"(worst {float(over.max())} of the limit)")
+    return float(over[limit > 0].max()) if bool((limit > 0).any()) else 0.0
+
+
+def b3_bwd_row(args, launches, err, **extra):
+    """B3-bwd's kernel row at ``args`` (grad, ids, mask, num_rows, fields,
+    field_rows), whose checks ran before: the op (grouping and one launch),
+    the grouping alone, the kernel alone on prepared inputs, each by CUDA
+    events, the dense gradient's zero fill as the bound's yardstick, the
+    plain version (``index_add_``, atomics) and the backward of
     ``F.embedding_bag(..., mode="sum", per_sample_weights=mask)``; the
-    bound counts the dense ``[V, E]`` gradient written once, the ids,
-    mask and output gradient read once."""
+    bound counts the dense
+    ``[V, E]`` gradient written once, the ids, mask and output gradient
+    read once; the heaviest slab and the longest run."""
     import torch
     import torch.nn.functional as F
 
@@ -2925,33 +2983,34 @@ def embedding_bag_backward_row(args, launches, err):
     EB.embedding_bag_fixed_backward(*args)
     per_call = EB.BACKWARD_LAUNCHES - before
     check(per_call == 1, f"B3-bwd launched {per_call} kernels a call")
-    prepared = EB.prepare_backward(ids, f, field_rows)
-    rows = EB._fixed_rows(ids, f, field_rows)
+    prepared = EB.prepare_backward(ids, v, e, f, field_rows)
+    rows64 = EB._fixed_rows(ids, f, field_rows).reshape(-1)
     table = torch.zeros((v, e), device=grad.device, requires_grad=True)
-    lib_out = F.embedding_bag(rows, table, mode="sum",
+    lib_out = F.embedding_bag(rows64.reshape(n, m), table, mode="sum",
                               per_sample_weights=mask.to(torch.float32))
-    nbytes = v * e * 4 + n * m * 5 + n * e * 4
-    flops = 2 * n * m * e
     row = dict(
         name="embedding_bag_backward", route="cuda",
         source="src/repro_torch/csrc/embedding_bag.cu",
-        replaces="none: port-only (the JAX package trains without its "
-                 "Pallas kernel, src/repro/models/embedding.py:50-73)",
-        launches=launches, kernel_launches_per_call=per_call,
-        max_abs_err=err,
+        replaces=B3_BWD_REPLACES, launches=launches,
+        kernel_launches_per_call=per_call, max_abs_err=err,
         ms=time_ms(lambda: EB.embedding_bag_fixed_backward(*args),
                    iters=10),
-        launch_with_zero_fill_ms=time_ms(lambda: EB.launch_backward(
-            grad, mask, m, v, *prepared), iters=10),
+        grouping_ms=time_ms(lambda: EB.prepare_backward(ids, v, e, f,
+                                                        field_rows),
+                            iters=10),
+        kernel_ms=time_ms(lambda: EB.launch_backward(grad, mask, m, v,
+                                                     *prepared), iters=10),
         zero_fill_ms=time_ms(lambda: torch.zeros((v, e),
                                                  device=grad.device),
                              iters=10),
         plain_ms=time_ms(
             lambda: EB.embedding_bag_fixed_backward_plain(*args), iters=10),
         shape=[v, e, n * m, n],
-        **bound(nbytes, flops),
+        **b3_bwd_shape(args), **extra,
+        **bound(v * e * 4 + n * m * 5 + n * e * 4, 2 * n * m * e),
         library_ms=time_ms(lambda: torch.autograd.grad(
             lib_out, table, grad, retain_graph=True), iters=10))
+    row["kernel_share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
     del lib_out, table
     return row
 
@@ -4683,13 +4742,16 @@ def phase_train_parallel(device, seed):
     return result, result["Q2"]
 
 
-def train_shard_rows(args, q2):
+def train_shard_rows(args, xd, q2):
     """Kernel rows of phase Q's shards on the card, at phase T's
     train_batch bags (xDeepFM's 65,536 rows x 3 multi-hot fields x 8
     lookups): B3 and B3-bwd on one of two row shards of the table (rank
     0's rows, as Q2's rank 0 holds them; a lookup of the other half is
-    masked), each against its plain version; launches as Q2's rank 0
-    counted them in its xDeepFM steps."""
+    masked), each against its plain version; then B3-bwd at Q2's other two
+    launches of a step on that shard, from the batch's single-hot ids
+    (``xd``: phase T's table rows, config and batch): the fields and the
+    linear term.  Launches as Q2's rank 0 counted them in its xDeepFM
+    steps."""
     import torch
     import torch.nn.functional as F
 
@@ -4730,36 +4792,58 @@ def train_shard_rows(args, q2):
             lids.long(), table, mode="sum",
             per_sample_weights=hit.to(torch.float32))))]
     del got, plain, table
-    bargs = (grad, lids, hit, half)
-    first = EB.embedding_bag_fixed_backward(*bargs)
-    plain = EB.embedding_bag_fixed_backward_plain(*bargs)
-    torch.cuda.synchronize()
-    err = float((first - plain).abs().max())
-    check(err <= B3_BWD_TOL, f"B3-bwd on a row shard {err} from its plain "
-          f"version")
-    del first, plain
-    leaf = torch.zeros((half, e), device=grad.device, requires_grad=True)
-    lib_out = F.embedding_bag(lids.long(), leaf, mode="sum",
-                              per_sample_weights=hit.to(torch.float32))
-    out.append(dict(
-        name="embedding_bag_backward", route="cuda",
-        source="src/repro_torch/csrc/embedding_bag.cu",
-        replaces="none: port-only (the JAX package trains without its "
-                 "Pallas kernel, src/repro/models/embedding.py:50-73)",
-        launches=launches["embedding_bag_backward"], max_abs_err=err,
-        ms=time_ms(lambda: EB.embedding_bag_fixed_backward(*bargs),
-                   iters=10),
-        plain_ms=time_ms(lambda: EB.embedding_bag_fixed_backward_plain(
-            *bargs), iters=10),
-        shape=[half, e, n * m, n], held_lookups=held, shards=Q_RANKS,
-        on="a row shard of the table, train_batch's bags",
-        # the half table's dense gradient written once, the ids, mask
-        # and output gradient read once
-        **bound(half * e * 4 + n * m * 5 + n * e * 4, 2 * held * e),
-        library_ms=time_ms(lambda: torch.autograd.grad(
-            lib_out, leaf, grad, retain_graph=True), iters=10)))
-    del lib_out, leaf
+    out.append(b3_bwd_launch_row(
+        (grad, lids, hit, half, 1, 0), launches["embedding_bag_backward"],
+        tol=B3_BWD_TOL, held_lookups=held, shards=Q_RANKS,
+        on="a row shard of the table, train_batch's bags"))
+    # Q2's two other launches a step on the same shard: the fields (one
+    # Zipf id a bag) and the linear term (a [V, 1] table, 39 lookups a bag)
+    single = torch.from_numpy(xd[2]["ids"]).to(grad.device).long()
+    vpf = xd[1].table.vocab_per_field
+    rows = single + torch.arange(single.shape[1],
+                                 device=grad.device)[None] * vpf
+    for what, bag_rows, width in (
+            ("the fields: one Zipf id a bag", rows.reshape(-1, 1), e),
+            ("the linear term: a [V, 1] table, 39 lookups a bag", rows, 1)):
+        shard.local = torch.empty((half, width), device=grad.device)
+        lids, hit, _ = shard.local_ids(bag_rows, None)
+        g = torch.randn((lids.shape[0], width), generator=gen,
+                        device=grad.device)
+        out.append(b3_bwd_launch_row(
+            (g, lids, hit, half, 1, 0), launches["embedding_bag_backward"],
+            held_lookups=int(hit.sum()), shards=Q_RANKS,
+            on=f"a row shard of the table, {what}"))
+        del g, lids, hit
     return out
+
+
+def b3_bwd_launch_row(args, launches, tol=None, **extra):
+    """B3-bwd at one of Q2's launches: checked (bit for bit the CPU plain
+    version, two launches equal, within the summation-order limit of its
+    atomic plain version on the card and, given ``tol``, within ``tol`` of
+    it), then timed as :func:`b3_bwd_row`."""
+    import torch
+
+    from repro_torch.kernels import embedding_bag as EB
+
+    first = EB.embedding_bag_fixed_backward(*args)
+    second = EB.embedding_bag_fixed_backward(*args)
+    plain = EB.embedding_bag_fixed_backward_plain(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(first, second), "B3-bwd differs between two launches")
+    err = float((first - plain).abs().max())
+    check(tol is None or err <= tol,
+          f"B3-bwd {err} from its plain version ({extra})")
+    order = b3_bwd_order_check(args, first, plain)
+    del second, plain
+    cpu = EB.embedding_bag_fixed_backward_plain(
+        *(None if x is None else x.cpu() for x in args[:3]), *args[3:])
+    check(torch.equal(first.cpu(), cpu),
+          f"B3-bwd differs from the plain version on the CPU ({extra})")
+    del first, cpu
+    return b3_bwd_row(args, launches, err, order_limit_share=order,
+                      bit_identical_to_cpu_plain=True, deterministic=True,
+                      **extra)
 
 
 def main(argv=None) -> int:
@@ -4835,12 +4919,13 @@ def main(argv=None) -> int:
                     "launches"]}
     t0 = time.perf_counter()
     rows = phase_kernels(paper, deep, recsys, sweep, launches)
-    rows.append(embedding_bag_backward_row(
+    rows.append(b3_bwd_row(  # phase T's train_batch (its checks ran there)
         train["b3_backward"],
         train["xdeepfm_launches"]["embedding_bag_backward"],
         out_t["b3_backward"]["max_abs_err"]))
     rows.extend(shard_rows(recsys, p2))
-    rows.extend(train_shard_rows(train["b3_backward"], q2))
+    rows.extend(train_shard_rows(train["b3_backward"], train["xdeepfm"],
+                                 q2))
     emit({"phase": "D", "seconds": time.perf_counter() - t0})
     emit({"kernels": rows})
     print(card, flush=True)

@@ -1,6 +1,7 @@
 // Host check of the kernels' per-row arithmetic.  Runs the functions the
-// CUDA kernels share through fused_measures.cuh and bitonic.cuh, rank by
-// rank and stage by stage, on the CPU; tests/test_torch_host_check.py
+// CUDA kernels share through fused_measures.cuh, bitonic.cuh and
+// embedding_bag_bwd.cuh, rank by rank, stage by stage and slab by slab, on
+// the CPU; tests/test_torch_host_check.py
 // builds it with g++ and holds it against the plain PyTorch versions.
 //
 //   host_check fused Q D LEVEL  < rel, judged [Q,D], scalars [Q,16] (f32)
@@ -11,18 +12,30 @@
 //   host_check keys N           < scores [N] f32
 //                               > make_key(score i, i) [N], then
 //                                 init_key(N, 0) (u64)
+//   host_check bag_bwd N M E FIELDS FIELD_ROWS R
+//                               < ids [N,M] i32, mask [N,M] u8,
+//                                 d_out [N,E] f32
+//                               > d_table [FIELDS·FIELD_ROWS, E] f32
+//                                 (exit 3 for a row out of range: the
+//                                 kernel's trap; 4 for a row not
+//                                 written exactly once)
 //
 // topk is the top-k kernel's one-pass launch; topk_split cuts each row
 // into S chunks (pass 1) and merges their top k (pass 2), with a staging
-// buffer of STAGE entries (the kernel's is 4,096).
+// buffer of STAGE entries (the kernel's is 4,096).  bag_bwd is B3's
+// backward (embedding_bag_bwd.cuh) with slabs of R rows: the wrapper's
+// grouping (a stable sort of the rows, ids plus (n % FIELDS)·FIELD_ROWS),
+// then each CTA's tile of slabs, chunk by chunk and segment by segment.
 #include <math.h>
 #include <stdio.h>
 #include <stdlib.h>
 #include <string.h>
 
+#include <algorithm>
 #include <vector>
 
 #include "bitonic.cuh"
+#include "embedding_bag_bwd.cuh"
 #include "fused_measures.cuh"
 
 namespace {
@@ -341,6 +354,116 @@ void topk_split_row(const float* s, float* out_v, int* out_i, int d, int k,
   }
 }
 
+// One walk of embedding_bag.cu's backward: the sorted lookups [lo, hi) of
+// the slab whose rows start at r0, the slab's rows [ra, rb) stored.
+struct BagBwd {
+  const std::vector<int>& sorted;
+  const std::vector<long long>& order;
+  const std::vector<unsigned char>& mask;
+  const std::vector<float>& d_out;
+  int m, e, chunk;
+  std::vector<float> slab, stage;
+  std::vector<int> row, seg, writes;
+
+  void walk(long long r0, int ra, int rb, long long lo, long long hi,
+            float* d_table) {
+    std::fill(slab.begin(), slab.end(), 0.0f);
+    while (lo < hi) {
+      const int cnt = static_cast<int>(std::min<long long>(chunk, hi - lo));
+      for (int j = 0; j < cnt; ++j) {
+        const long long pos = order[lo + j];
+        row[j] = static_cast<int>(sorted[lo + j] - r0);
+        const float w = ebb::weight(mask.data(), pos);
+        for (int c = 0; c < e; ++c) {
+          stage[c * chunk + j] = ebb::term(d_out[(pos / m) * e + c], w);
+        }
+      }
+      int segs = 0;
+      for (int j = 0; j < cnt; ++j) {
+        if (ebb::starts_segment(row.data(), j)) seg[segs++] = j;
+      }
+      seg[segs] = cnt;
+      for (int sid = 0; sid < segs; ++sid) {
+        for (int c = 0; c < e; ++c) {
+          ebb::fold(&slab[static_cast<size_t>(row[seg[sid]]) * e + c],
+                    &stage[c * chunk], seg[sid], seg[sid + 1]);
+        }
+      }
+      lo += cnt;
+    }
+    std::copy(slab.begin() + ra * e, slab.begin() + rb * e,
+              d_table + (r0 + ra) * e);
+    for (int x = ra; x < rb; ++x) ++writes[r0 + x];
+  }
+};
+
+// embedding_bag.cu's backward: the wrapper's grouping, then every slab
+// that is not heavy, then every window's rows of the heavy slabs it meets.
+// Returns 3 for a row out of range, 4 unless every row is written once.
+int bag_bwd(const std::vector<int>& ids,
+            const std::vector<unsigned char>& mask,
+            const std::vector<float>& d_out, int n, int m, int e, int fields,
+            long long field_rows, int r, float* d_table) {
+  const long long l = static_cast<long long>(n) * m;
+  const long long v = fields * field_rows;
+  std::vector<int> keys(l);
+  std::vector<long long> order(l);
+  for (long long i = 0; i < l; ++i) {
+    keys[i] = static_cast<int>(ids[i] + (i / m) % fields * field_rows);
+    order[i] = i;
+  }
+  std::stable_sort(order.begin(), order.end(), [&](long long a, long long b) {
+    return keys[a] < keys[b];
+  });
+  std::vector<int> sorted(l);
+  for (long long i = 0; i < l; ++i) sorted[i] = keys[order[i]];
+  if (l > 0 && (sorted[0] < 0 || sorted[l - 1] >= v)) return 3;
+  const long long slabs = (v + r - 1) / r;
+  // the wrapper's searchsorted: each slab's first lookup, then l
+  std::vector<long long> starts(slabs + 1);
+  for (long long s = 0; s <= slabs; ++s) {
+    starts[s] = ebb::lower_bound(sorted.data(), 0, l, s * r);
+  }
+  const int chunk = ebb::chunk_lookups(e);
+  BagBwd bw{sorted, order, mask, d_out, m, e, chunk,
+            std::vector<float>(static_cast<size_t>(r) * e),
+            std::vector<float>(chunk * e), std::vector<int>(chunk),
+            std::vector<int>(chunk + 1), std::vector<int>(v)};
+  auto rows_of = [&](long long s) {
+    return static_cast<int>(std::min<long long>(r, v - s * r));
+  };
+  for (long long s = 0; s < slabs; ++s) {
+    if (starts[s + 1] - starts[s] <= ebb::kWindow) {
+      bw.walk(s * r, 0, rows_of(s), starts[s], starts[s + 1], d_table);
+    }
+  }
+  const long long windows = (l + ebb::kWindow - 1) / ebb::kWindow;
+  for (long long h = 0; h < windows; ++h) {
+    const long long first = h * ebb::kWindow;
+    const long long last = std::min(first + ebb::kWindow, l) - 1;
+    for (int side = 0; side < 2; ++side) {
+      const long long s = sorted[side == 0 ? first : last] / r;
+      if (side == 1 && s == sorted[first] / r) break;
+      const long long lo_s = starts[s];
+      const long long hi_s = starts[s + 1];
+      if (hi_s - lo_s <= ebb::kWindow) continue;
+      const long long r0 = s * r;
+      const long long h0 = lo_s / ebb::kWindow;
+      const long long h1 = (hi_s - 1) / ebb::kWindow;
+      const int ra = ebb::window_row(sorted.data(), h, h0, h1, r0, rows_of(s));
+      const int rb =
+          ebb::window_row(sorted.data(), h + 1, h0, h1, r0, rows_of(s));
+      if (ra >= rb) continue;
+      bw.walk(r0, ra, rb, ebb::lower_bound(sorted.data(), lo_s, hi_s, r0 + ra),
+              ebb::lower_bound(sorted.data(), lo_s, hi_s, r0 + rb), d_table);
+    }
+  }
+  for (long long x = 0; x < v; ++x) {
+    if (bw.writes[x] != 1) return 4;
+  }
+  return 0;
+}
+
 template <typename T>
 void read_all(std::vector<T>& buf) {
   if (fread(buf.data(), sizeof(T), buf.size(), stdin) != buf.size()) {
@@ -367,12 +490,45 @@ int main(int argc, char** argv) {
     write_all(keys);
     return 0;
   }
+  if (argc == 8 && strcmp(argv[1], "bag_bwd") == 0) {
+    const int n = atoi(argv[2]);
+    const int m = atoi(argv[3]);
+    const int e = atoi(argv[4]);
+    const int fields = atoi(argv[5]);
+    const long long field_rows = atoll(argv[6]);
+    const int r = atoi(argv[7]);
+    if (n < 0 || m < 0 || e < 1 || e > ebb::kStageFloats / 32 ||
+        fields < 1 || field_rows < 1 || r < 1) {
+      fprintf(stderr, "host_check: bad bag_bwd shape\n");
+      return 2;
+    }
+    const size_t l = static_cast<size_t>(n) * m;
+    std::vector<int> ids(l);
+    std::vector<unsigned char> mask(l);
+    std::vector<float> d_out(static_cast<size_t>(n) * e);
+    read_all(ids);
+    read_all(mask);
+    read_all(d_out);
+    // NaN everywhere first: every float of the output must be written
+    std::vector<float> d_table(static_cast<size_t>(fields) * field_rows * e,
+                               NAN);
+    const int rc = bag_bwd(ids, mask, d_out, n, m, e, fields, field_rows,
+                           r, d_table.data());
+    if (rc != 0) {
+      fprintf(stderr, rc == 3 ? "host_check: a row is out of range\n"
+                              : "host_check: a row not written once\n");
+      return rc;
+    }
+    write_all(d_table);
+    return 0;
+  }
   const bool split = argc == 7 && strcmp(argv[1], "topk_split") == 0;
   if (argc != 5 && !split) {
     fprintf(stderr,
             "usage: host_check fused|topk Q D LEVEL|K\n"
             "       host_check topk_split Q D K S STAGE\n"
-            "       host_check keys N\n");
+            "       host_check keys N\n"
+            "       host_check bag_bwd N M E FIELDS FIELD_ROWS R\n");
     return 2;
   }
   const int q = atoi(argv[2]);

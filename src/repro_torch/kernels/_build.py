@@ -35,7 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES: Dict[str, tuple] = {
     "topk": ("topk.cu", "bitonic.cuh"),
     "fused_measures": ("fused_measures.cu", "fused_measures.cuh"),
-    "embedding_bag": ("embedding_bag.cu",),
+    "embedding_bag": ("embedding_bag.cu", "embedding_bag_bwd.cuh"),
 }
 
 #: nvcc's output (``-Xptxas=-v``: registers, shared memory, spills) per

@@ -32,7 +32,14 @@ gradient row times its mask entry added into the rows of its lookups, in
 lookup order.  On the card that is a second kernel of
 ``csrc/embedding_bag.cu`` (``embedding_bag_fixed_backward_launch``; it
 replaces no Pallas kernel, since the JAX package trains without its
-kernel and lets XLA form the scatter), deterministic bit for bit;
+kernel and lets XLA form the scatter): the wrapper groups the lookups by
+row (one stable ``torch.sort`` of 32-bit row keys, the ids plus their
+field offsets in one pass, and ``torch.searchsorted`` for each slab's
+first lookup) and one launch writes every byte of the dense ``[V, E]``
+gradient once, slab by slab from shared memory, with no zero fill
+before it (``csrc/embedding_bag_bwd.cuh``), deterministic and bit for
+bit the CPU plain version.  Its bound is that dense gradient written
+once, plus the ids, mask and output gradient read once.
 ``BACKWARD_LAUNCHES`` counts its launches.  On the CPU it is
 :func:`embedding_bag_fixed_backward_plain`.  It too is a ``torch.library``
 op, ``repro_torch::embedding_bag_fixed_backward``, with CPU, CUDA and
@@ -54,6 +61,14 @@ BACKWARD_LAUNCHES = 0
 
 _MAX_BLOCKS = 2**31 - 1
 _THREADS = 256
+#: widest row the backward kernel takes (``csrc/embedding_bag_bwd.cuh``:
+#: 32 lookups of a chunk fill its 8,192 staged floats)
+MAX_BACKWARD_WIDTH = 256
+#: the floats of the backward kernel's slab in shared memory at most
+#: (``kSlabFloats``, 20 KB)
+SLAB_FLOATS = 5120
+#: the backward kernel's 32-bit row keys, with room for one slab past V
+_MAX_KEY_ROWS = 2**31 - 2**14
 
 
 def embedding_bag_plain(table, indices, segment_ids, n_bags, weights=None):
@@ -102,8 +117,8 @@ def _lib(entry="embedding_bag_launch"):
             "embedding_bag_launch": [p, p, p, p, p, ll, i, p],
             "embedding_bag_fixed_launch": [p, ll, i, p, p, ll, i, i, ll, i,
                                            p, p],
-            "embedding_bag_fixed_backward_launch": [p, p, p, p, ll, i, i,
-                                                    ll, p, p],
+            "embedding_bag_fixed_backward_launch": [p, p, p, p, p, ll, i,
+                                                    i, ll, i, p, p],
         }[entry] + [ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
     return fn
@@ -312,10 +327,10 @@ def embedding_bag_fixed_backward(grad: torch.Tensor, ids: torch.Tensor,
     """Gradient of :func:`embedding_bag_fixed` with respect to its table
     ``[num_rows, E]``, given ``grad`` ``[N, E]`` of its output.
 
-    A CUDA tensor goes through the backward kernel: the wrapper
-    stable-sorts the flattened rows (no host sync), allocates the zero
-    gradient, and one launch writes every touched row, summed in lookup
-    order (the same bits on every launch).  A row outside
+    A CUDA tensor (int32 ids) goes through the backward kernel: the
+    wrapper stable-sorts the lookups' 32-bit rows (no host sync) and one
+    launch writes the whole gradient, each row summed in lookup order
+    (the same bits on every launch), an untouched row 0.  A row outside
     ``[0, num_rows)`` stops the kernel with a device-side trap.  A CPU
     tensor goes through :func:`embedding_bag_fixed_backward_plain`."""
     if grad.dim() != 2 or ids.dim() != 2 or grad.shape[0] != ids.shape[0]:
@@ -336,17 +351,21 @@ def embedding_bag_fixed_backward(grad: torch.Tensor, ids: torch.Tensor,
 def _backward_cuda(grad, ids, mask, num_rows, fields, field_rows):
     if grad.dtype != torch.float32 or not grad.is_contiguous():
         raise ValueError("grad must be a contiguous float32 tensor")
+    if ids.dtype != torch.int32 or not ids.is_contiguous():
+        raise ValueError("ids must be a contiguous int32 tensor")
     if mask is not None and not mask.is_contiguous():
         raise ValueError("mask must be contiguous")
-    n, m = ids.shape
     e = grad.shape[1]
-    if n == 0 or m == 0 or e == 0:
-        return torch.zeros((num_rows, e), dtype=torch.float32,
-                           device=grad.device)
-    if -(-n * m * e // _THREADS) > _MAX_BLOCKS:
-        raise ValueError(f"{n * m} lookups x {e} columns exceed one grid")
-    return launch_backward(grad, mask, m, num_rows,
-                           *prepare_backward(ids, fields, field_rows))
+    if e > MAX_BACKWARD_WIDTH:
+        raise ValueError(f"the backward kernel takes rows of at most "
+                         f"{MAX_BACKWARD_WIDTH} floats, got {e}")
+    if num_rows > _MAX_KEY_ROWS or (fields - 1) * field_rows > _MAX_KEY_ROWS:
+        raise ValueError(f"the backward kernel sorts 32-bit rows: "
+                         f"{num_rows} rows or field offsets up to "
+                         f"{(fields - 1) * field_rows} exceed {_MAX_KEY_ROWS}")
+    return launch_backward(grad, mask, ids.shape[1], num_rows,
+                           *prepare_backward(ids, num_rows, e, fields,
+                                             field_rows))
 
 
 def _backward_meta(grad, ids, mask, num_rows, fields, field_rows):
@@ -362,30 +381,62 @@ _LIB.impl("embedding_bag_fixed_backward", _backward_cuda, "CUDA")
 _LIB.impl("embedding_bag_fixed_backward", _backward_meta, "Meta")
 
 
-def prepare_backward(ids, fields: int = 1, field_rows: int = 0):
-    """The backward kernel's inputs: the lookups' table rows stable-sorted
-    (int64 ``[N·m]``) and each one's position ``n·m + j``."""
-    return torch.sort(_fixed_rows(ids, fields, field_rows).reshape(-1),
-                      stable=True)
+def _rows32(ids, fields: int, field_rows: int) -> torch.Tensor:
+    """``[N, m]`` int32 table rows of fixed-length bags, ids plus ``(n %
+    fields) · field_rows``, in one pass over the ids (the ids themselves
+    when every offset is 0)."""
+    n, m = ids.shape
+    if fields == 1 or not field_rows or n == 0:
+        return ids
+    offsets = torch.arange(0, fields * field_rows, field_rows,
+                           dtype=torch.int32, device=ids.device)
+    if n % fields == 0:
+        return (ids.view(n // fields, fields, m) + offsets[:, None]).view(n, m)
+    return ids + offsets.repeat(-(-n // fields))[:n, None]
 
 
-def launch_backward(grad, mask, m: int, num_rows: int, rows, order):
+def slab_rows(width: int) -> int:
+    """Rows of the backward kernel's slab for rows of ``width`` floats: as
+    many as :data:`SLAB_FLOATS` holds, a multiple of 4."""
+    return (SLAB_FLOATS // width) & ~3
+
+
+def prepare_backward(ids, num_rows: int, width: int, fields: int = 1,
+                     field_rows: int = 0):
+    """The backward kernel's grouping: the lookups' table rows as int32
+    keys, stable-sorted (those of one row in lookup order), each one's
+    position ``n·m + j`` (int64), and the first sorted lookup of each slab
+    of :func:`slab_rows` of ``width`` rows, the last entry the number of
+    lookups (int64 ``[ceil(num_rows / R) + 1]``)."""
+    r = slab_rows(width)
+    keys, order = torch.sort(_rows32(ids, fields, field_rows).reshape(-1),
+                             stable=True)
+    edges = torch.arange(0, (-(-num_rows // r) + 1) * r, r,
+                         dtype=torch.int32, device=ids.device)
+    return keys, order, torch.searchsorted(keys, edges)
+
+
+def launch_backward(grad, mask, m: int, num_rows: int, keys, order, starts):
     """One backward kernel launch on prepared inputs (see
-    :func:`prepare_backward`) into a new zero ``[num_rows, E]``."""
+    :func:`prepare_backward`) into a new ``[num_rows, E]``, every float of
+    which the kernel writes."""
     global BACKWARD_LAUNCHES
     e = grad.shape[1]
-    out = torch.zeros((num_rows, e), dtype=torch.float32, device=grad.device)
+    out = torch.empty((num_rows, e), dtype=torch.float32, device=grad.device)
+    if out.data_ptr() % 16:
+        raise ValueError("the gradient must start on 16 bytes")
     launched = ctypes.c_int(0)
     with torch.cuda.device(grad.device):
         stream = torch.cuda.current_stream(grad.device).cuda_stream
         rc = _lib("embedding_bag_fixed_backward_launch")(
-            rows.data_ptr(), order.data_ptr(), grad.data_ptr(),
-            0 if mask is None else mask.data_ptr(), rows.numel(), m, e,
-            num_rows, out.data_ptr(), stream, ctypes.byref(launched))
+            keys.data_ptr(), order.data_ptr(), starts.data_ptr(),
+            grad.data_ptr(), 0 if mask is None else mask.data_ptr(),
+            keys.numel(), m, e, num_rows, slab_rows(e), out.data_ptr(),
+            stream, ctypes.byref(launched))
     if rc != 0:
         raise RuntimeError(
             f"embedding_bag backward kernel launch failed: CUDA error {rc}")
-    BACKWARD_LAUNCHES += launched.value
+    BACKWARD_LAUNCHES += launched.value  # none for an empty gradient
     return out
 
 

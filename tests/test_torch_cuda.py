@@ -14,9 +14,12 @@ the all-fields lookup bit for bit against the CPU, with an out-of-range id
 trapping on the device; the hot-path wrappers (top-k, EmbeddingBag, the
 fused measures) under ``torch.cuda.set_sync_debug_mode("error")``; smoke-size recsys steps
 on the card against the CPU; training: B3's backward kernel (empty mask,
-one bag, repeated rows, ``fields > 1``) bit for bit against the CPU and on
-two launches, the autograd Function, and smoke recsys and GatedGCN train
-steps (no host sync) with every gradient against the CPU's; the five LM
+one bag, repeated rows, ``fields > 1``, rows either side of a slab edge,
+V off a multiple of the slab, heavy slabs split among windows of
+lookups, Zipf ids, E = 1, 16 and 33, NaN times 0) bit for
+bit against the CPU and on two launches, one call launching it once
+with no fill, its traps and refusals, the autograd Function, and smoke
+recsys and GatedGCN train steps (no host sync) with every gradient against the CPU's; the five LM
 smoke configs' ``train`` step (no host sync), ``prefill`` and four
 ``decode`` steps against the CPU's, and the trainer's per-step times
 from CUDA events; and the experiment slice: the sweep on both
@@ -790,48 +793,171 @@ def test_compare_cli_on_cuda_byte_matches_golden(cuda):
 # -- training: B3's backward kernel and train steps on the card ----------------
 
 
-@pytest.mark.parametrize("n,m,e,fields,case", [
-    (5000, 8, 10, 3, "mask"),      # xDeepFM's layout
-    (1, 8, 10, 1, "mask"),         # one bag
-    (300, 4, 10, 2, "empty"),      # every lookup masked out
-    (400, 8, 33, 1, "repeated"),   # a few rows taken many times
-    (257, 3, 10, 4, "none"),       # no mask, fields > 1
-    (0, 8, 10, 3, "mask"), (10, 0, 10, 1, "none"),
-])
-def test_embedding_bag_fixed_backward_matches_plain(cuda, n, m, e, fields,
-                                                    case):
-    """B3-bwd: bit for bit the plain version on the CPU (which adds in
-    lookup order, as the kernel does), the same bits on two launches, and
-    close to the plain version on the card, whose atomics add in any
-    order: a row here sums up to 1,100 terms of ~1, so within 1e-5
-    relative and 1e-5 of the largest sum."""
-    rng = np.random.default_rng(n + m + e + fields)
-    field_rows = 97
-    v = fields * field_rows
-    ids = rng.integers(0, 3 if case == "repeated" else field_rows,
-                       (n, m)).astype(np.int32)
-    mask = None if case == "none" else rng.random((n, m)) < 0.6
+def bag_bwd_inputs(n, m, e, fields, field_rows, case, seed):
+    """B3-bwd's inputs, numpy: ids ``[n, m]`` int32 (uniform, a few rows,
+    Zipf, or the rows either side of a slab edge ``edgeR``), a bool mask
+    (None: every lookup weighs 1) and ``grad [n, e]`` float32."""
+    rng = np.random.default_rng(seed)
+    if case == "zipf":  # recsys_data.ctr_batch's single-hot ids
+        ids = (rng.pareto(1.2, (n, m)) * 17).astype(np.int64) % field_rows
+    elif case == "repeated":
+        ids = rng.integers(0, 3, (n, m))
+    elif case.startswith("edge"):
+        ids = int(case[4:]) - 1 + rng.integers(0, 2, (n, m))
+    else:
+        ids = rng.integers(0, field_rows, (n, m))
+    mask = None if case in ("none", "zipf") else rng.random((n, m)) < 0.6
     if case == "empty":
         mask[:] = False
     grad = rng.standard_normal((n, e)).astype(np.float32)
+    if case == "nonfinite":  # masked-out lookups of non-finite rows
+        grad[::7, 0] = np.inf
+        grad[3::11, -1] = np.nan
+    return ids.astype(np.int32), mask, grad
+
+
+#: (n, m, e, fields, field_rows, case); the host check runs the same cases
+#: (tests/test_torch_host_check.py).  Slabs of EB.slab_rows(e) rows: 512
+#: for e = 10, 320 for e = 16, 152 for e = 33, 5,120 for e = 1.
+BAG_BWD_CASES = [
+    (5000, 8, 10, 3, 97, "mask"),       # xDeepFM's layout
+    (1, 8, 10, 1, 97, "mask"),          # one bag
+    (300, 4, 10, 2, 97, "empty"),       # every lookup masked out
+    (400, 8, 33, 1, 97, "repeated"),    # a few rows taken many times
+    (257, 3, 10, 4, 97, "none"),        # no mask, fields > 1
+    (0, 8, 10, 3, 97, "mask"), (10, 0, 10, 1, 97, "none"),
+    # the rows either side of a slab edge; V = 2,100 off a multiple of 512
+    (600, 8, 10, 1, 1100, "edge512"),
+    (5000, 8, 10, 3, 700, "mask"),
+    # heavy slabs (over 8,192 lookups), split by rows among the windows of
+    # 8,192 sorted lookups: one slab of 16,000 lookups; three rows taken
+    # 24,000 times, runs across windows; three fields' Zipf heads
+    (2000, 8, 10, 1, 97, "mask"),
+    (3000, 8, 10, 1, 97, "repeated"),
+    (40000, 1, 10, 3, 700, "zipf"),
+    # Zipf ids, one lookup a bag (the vocab-parallel fields)
+    (6000, 1, 10, 39, 700, "zipf"),
+    # E = 1 (the linear term, 39 lookups a bag: one heavy slab), E = 16
+    # (the widest row held in registers a chunk ahead) and E = 33
+    (3000, 39, 1, 1, 5000, "mask"),
+    (500, 8, 16, 2, 300, "mask"),
+    (700, 8, 33, 2, 500, "mask"),
+    # NaN times 0 stays in the sum
+    (500, 8, 10, 2, 60, "nonfinite"),
+]
+
+
+def assert_bits_equal(got, want):
+    """Equal bit for bit where ``want`` is a number, NaN where it is NaN
+    (the card's NaN and the CPU's may differ in sign and payload)."""
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan], want[~nan])
+
+
+@pytest.mark.parametrize("n,m,e,fields,field_rows,case", BAG_BWD_CASES)
+def test_embedding_bag_fixed_backward_matches_plain(cuda, n, m, e, fields,
+                                                    field_rows, case):
+    """B3-bwd: bit for bit the plain version on the CPU (which adds in
+    lookup order, as the kernel does), the same bits on two launches and
+    on a launch from prepared inputs; one launch a call, a
+    call without lookups included (the kernel writes its zeros); and
+    close to the plain version on the card, whose atomics add in any
+    order: a row here sums up to 1,100 terms of ~1, so within 1e-5
+    relative and 1e-5 of the largest sum."""
+    ids, mask, grad = bag_bwd_inputs(n, m, e, fields, field_rows, case,
+                                     n + m + e + fields)
+    v = fields * field_rows
     cpu = [None if x is None else torch.from_numpy(x)
            for x in (grad, ids, mask)]
     dev = [None if x is None else x.to(cuda) for x in cpu]
     before = EB.BACKWARD_LAUNCHES
     got = EB.embedding_bag_fixed_backward(*dev, v, fields, field_rows)
     again = EB.embedding_bag_fixed_backward(*dev, v, fields, field_rows)
-    assert EB.BACKWARD_LAUNCHES == before + (2 if n * m else 0)
+    assert EB.BACKWARD_LAUNCHES == before + 2
+    prepared = EB.prepare_backward(dev[1], v, e, fields, field_rows)
+    direct = EB.launch_backward(dev[0], dev[2], m, v, *prepared)
     plain = EB.embedding_bag_fixed_backward_plain(*dev, v, fields,
                                                   field_rows)
     want = EB.embedding_bag_fixed_backward_plain(*cpu, v, fields, field_rows)
     torch.cuda.synchronize()
     assert got.shape == (v, e)
-    assert torch.equal(got, again)
-    assert torch.equal(got.cpu(), want)
-    scale = float(want.abs().max()) if want.numel() else 0.0
-    assert torch.allclose(got, plain, atol=1e-5 * scale, rtol=1e-5)
+    for out in (got, again, direct):
+        assert_bits_equal(out.cpu(), want)
+    if case != "nonfinite":
+        scale = float(want.abs().max()) if want.numel() else 0.0
+        assert torch.allclose(got, plain, atol=1e-5 * scale, rtol=1e-5)
     if case == "empty":
         assert not bool(got.any())
+
+
+def test_embedding_bag_fixed_backward_launches_no_fill(cuda):
+    """One B3-bwd call on the card is the grouping and one kernel that
+    writes the whole gradient: under ``torch.profiler`` the kernel runs
+    once a call, the call runs no zero or fill op and no fill kernel of
+    its own (the sort fills its index vector), the launch on prepared
+    inputs runs no fill or memset at all, and ``BACKWARD_LAUNCHES`` rises
+    by 1 a call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ids, mask, grad = bag_bwd_inputs(5000, 8, 10, 3, 97, "mask", 1)
+    dev = [torch.from_numpy(x).to(cuda) for x in (grad, ids, mask)]
+    args = (*dev, 3 * 97, 3, 97)
+    EB.embedding_bag_fixed_backward(*args)  # built, allocator warm
+    prepared = EB.prepare_backward(dev[1], 3 * 97, 10, 3, 97)
+    torch.cuda.synchronize()
+    before = EB.BACKWARD_LAUNCHES
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as whole:
+        EB.embedding_bag_fixed_backward(*args)
+        torch.cuda.synchronize()
+    with profile(activities=acts) as launch:
+        EB.launch_backward(dev[0], dev[2], 8, 3 * 97, *prepared)
+        torch.cuda.synchronize()
+    assert EB.BACKWARD_LAUNCHES == before + 2
+    calls = {"whole": [evt.name for evt in whole.events()],
+             "launch": [evt.name for evt in launch.events()]}
+    for names in calls.values():
+        assert sum("embedding_bag_fixed_backward_kernel" in x
+                   for x in names) == 1, names
+        assert not [x for x in names if x in ("aten::fill_", "aten::zero_",
+                                              "aten::zeros")
+                    or "FillFunctor" in x], names
+    assert not [x for x in calls["launch"]
+                if "fill" in x.lower() or "memset" in x.lower()], calls
+
+
+def test_embedding_bag_fixed_backward_out_of_range_traps(cuda):
+    """A row outside [0, V) (an id past its field, a negative id, any id
+    into a table of no rows) stops B3-bwd with a device-side trap; the
+    wrapper refuses int64 ids and rows wider than the kernel takes."""
+    cases = ["ids = torch.tensor([[1, 2], [3, 40]], dtype=torch.int32, "
+             "device='cuda'); v = 60",
+             "ids = torch.tensor([[1, -2]], dtype=torch.int32, "
+             "device='cuda'); v = 60",
+             "ids = torch.tensor([[0]], dtype=torch.int32, device='cuda'); "
+             "v = 0"]
+    env = dict(os.environ)
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
+    for case in cases:
+        code = ("import torch\n"
+                "from repro_torch.kernels import embedding_bag as EB\n"
+                f"{case}\n"
+                "g = torch.ones((ids.shape[0], 4), device='cuda')\n"
+                "EB.embedding_bag_fixed_backward(g, ids, None, v, 2, 20)\n"
+                "torch.cuda.synchronize()\n"
+                "print('NO TRAP')\n")
+        res = subprocess.run([sys.executable, "-c", code], env=env,
+                             capture_output=True, text=True, timeout=300)
+        assert res.returncode != 0 and "NO TRAP" not in res.stdout, case
+    ids = torch.zeros((2, 3), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        EB.embedding_bag_fixed_backward(torch.ones((2, 4), device=cuda),
+                                        ids.long(), None, 10)
+    with pytest.raises(ValueError, match="at most"):
+        EB.embedding_bag_fixed_backward(torch.ones((2, 257), device=cuda),
+                                        ids, None, 10)
 
 
 def test_embedding_bag_fixed_grad_on_cuda_matches_cpu_autograd(cuda):

@@ -1,12 +1,15 @@
 """The CUDA kernels' per-row arithmetic, built for the host with g++.
 
-``csrc/fused_measures.cuh`` and ``csrc/bitonic.cuh`` hold the math the
-kernels run (the per-rank scan step, the cutoff slots, the 64 output
-columns; the top-k's key order, admission test, radix select and bitonic
-sort).  ``csrc/host_check.cpp`` runs those same functions rank by rank and
-key by key on the CPU, with the top-k kernel's split-and-merge (mode
-``topk_split Q D K S STAGE``), and walks each fused-measure row chunk by
-chunk and lane by lane as the kernel's two regimes do; this test builds
+``csrc/fused_measures.cuh``, ``csrc/bitonic.cuh`` and
+``csrc/embedding_bag_bwd.cuh`` hold the math the kernels run (the
+per-rank scan step, the cutoff slots, the 64 output columns; the top-k's
+key order, admission test, radix select and bitonic sort; B3-bwd's slabs,
+chunks and in-order folds).  ``csrc/host_check.cpp`` runs those same
+functions rank by rank, key by key and slab by slab on the CPU, with the
+top-k kernel's split-and-merge (mode ``topk_split Q D K S STAGE``) and
+B3-bwd's grouping (mode ``bag_bwd N M E FIELDS FIELD_ROWS R``), and walks
+each fused-measure row chunk by chunk and lane by lane as the kernel's
+two regimes do; this test builds
 it (no torch headers, about a second) and holds it against the plain
 PyTorch versions on small rows.  It is the only check of the kernels'
 arithmetic that needs no GPU; the kernels themselves are held against the
@@ -21,9 +24,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import embedding_bag as EB
 from repro_torch.kernels import fused_measures as FM
 from repro_torch.kernels import topk as TK
 
+from test_torch_cuda import BAG_BWD_CASES, assert_bits_equal, bag_bwd_inputs
 from test_torch_measures import single_torch_thread  # noqa: F401
 from test_torch_measures import assert_columns_match
 
@@ -212,3 +217,93 @@ def test_topk_nan_rows_match_plain(host_check, q, d, k, splits, stage):
                                   pv.numpy()[:, :kk].view(np.uint32))
     assert (vals[:, kk:].view(np.float32) == -np.inf).all()
     assert (idx[:, kk:] >= d).all()
+
+
+# -- B3's backward: embedding_bag_bwd.cuh through the host check ------------
+
+
+def _run_bag_bwd(host_check, ids, mask, grad, fields, field_rows, r):
+    n, m = ids.shape
+    e = grad.shape[1]
+    ones = np.ones((n, m), bool) if mask is None else mask
+    res = subprocess.run(
+        [host_check, "bag_bwd", str(n), str(m), str(e), str(fields),
+         str(field_rows), str(r)],
+        input=ids.tobytes() + ones.astype(np.uint8).tobytes()
+        + grad.tobytes(), capture_output=True)
+    return res
+
+
+@pytest.mark.parametrize("n,m,e,fields,field_rows,r,case", [
+    (*c[:5], None, c[5]) for c in BAG_BWD_CASES] + [
+    # slabs of 8 and 12 rows: rows either side of an edge with V = 291 off
+    # a multiple of 8, many slabs, Zipf heads over many slabs, a heavy slab
+    (600, 8, 10, 1, 291, 8, "edge8"),
+    (5000, 8, 10, 3, 97, 8, "mask"),
+    (6000, 1, 10, 39, 700, 12, "zipf"),
+    (3000, 8, 10, 1, 97, 8, "repeated"),
+    (700, 8, 33, 2, 500, 40, "mask"),
+])
+def test_bag_bwd_slabs_match_plain(host_check, n, m, e, fields, field_rows,
+                                   r, case):
+    """B3-bwd's slabs (embedding_bag_bwd.cuh: each slab's lookups from the
+    wrapper's grouping, chunks of lookups, each run folded in lookup order
+    into a zeroed slab, heavy slabs split by rows among windows of
+    lookups, every float of the gradient written once) against
+    embedding_bag_fixed_backward_plain on the CPU, bit for bit, NaN where
+    it has NaN; at the kernel's slab rows (``EB.slab_rows``) and at
+    smaller slabs (``R``)."""
+    r = r or EB.slab_rows(e)
+    ids, mask, grad = bag_bwd_inputs(n, m, e, fields, field_rows, case,
+                                     n + m + e + fields)
+    res = _run_bag_bwd(host_check, ids, mask, grad, fields, field_rows, r)
+    assert res.returncode == 0, res.stderr
+    v = fields * field_rows
+    got = torch.from_numpy(np.frombuffer(res.stdout, np.float32).reshape(
+        v, e).copy())
+    want = EB.embedding_bag_fixed_backward_plain(
+        torch.from_numpy(grad), torch.from_numpy(ids),
+        None if mask is None else torch.from_numpy(mask), v, fields,
+        field_rows)
+    assert_bits_equal(got, want)
+    if case == "nonfinite":
+        assert bool(torch.isnan(want).any())
+    if case == "empty":
+        assert not bool(got.any())
+
+
+def test_bag_bwd_out_of_range_row_stops(host_check):
+    """A row past V: the kernel traps, the host check exits 3."""
+    ids = np.array([[1, 2], [3, 40]], np.int32)  # bag 1 is field 1: row 60
+    res = _run_bag_bwd(host_check, ids, None, np.ones((2, 4), np.float32),
+                       2, 20, 8)
+    assert res.returncode == 3 and b"out of range" in res.stderr
+
+
+def test_bag_bwd_matches_jax_grad(host_check):
+    """The host check's gradient against ``jax.grad`` of the JAX
+    package's take, mask and ``segment_sum`` (``repro.models.embedding``,
+    all multi-hot fields as one bag list): bit for bit, since XLA's
+    scatter on the CPU adds in lookup order too."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models import embedding as JE
+
+    n, f, m, e, vpf = 300, 3, 8, 10, 50
+    ids, mask, grad = bag_bwd_inputs(n * f, m, e, f, vpf, "mask", 5)
+    cfg = JE.TableConfig(n_fields=f, vocab_per_field=vpf, dim=e)
+    table = np.zeros((f * vpf, e), np.float32)
+
+    def loss(t):
+        out = jnp.stack([JE.multi_hot_lookup(
+            t, jnp.asarray(ids.reshape(n, f, m)[:, k]),
+            jnp.asarray(mask.reshape(n, f, m)[:, k]), cfg, k)
+            for k in range(f)], axis=1)  # [n, f, e], bag n·f + k
+        return jnp.sum(out.reshape(n * f, e) * jnp.asarray(grad))
+
+    want = np.asarray(jax.grad(loss)(jnp.asarray(table)))
+    res = _run_bag_bwd(host_check, ids, mask, grad, f, vpf, 16)
+    assert res.returncode == 0, res.stderr
+    got = np.frombuffer(res.stdout, np.float32).reshape(f * vpf, e)
+    np.testing.assert_array_equal(got, want)
