@@ -1,0 +1,2 @@
+"""Plain references that decide ``correct``; they import nothing of the
+program under test."""
